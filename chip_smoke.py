@@ -1,5 +1,6 @@
 """GPU smoke test of fresco_torch: kernels against their plain versions,
-then one full-width keyframe batch through the pipeline.
+then one full-width keyframe batch and one full-width propagation interval
+through the pipeline.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit:
@@ -25,7 +26,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                width (UNet, ControlNet, VAE, CLIP-L text) with random
                weights from a seeded torch.Generator, config_music's
                settings.  Both kernels' launch counters must move.
-The line before the last is the kernel table as JSON; the last line is
+  6. gather  : the row-gather kernel against index_select, bit for bit, at
+               the vote's finest table (327,680 rows of 75 float32) and
+               the TPU probe's (bf16, 384 wide);
+  7. patch_eval: the candidate-evaluation kernel against its plain version
+               at 512x640, C = 15: 15 and 20 candidates, a ragged active
+               set, patch 3; the NNF may differ only at near ties;
+  8. propagate: a 64x80 synthesize and 11-frame interval on the card and on
+               the CPU with the same draws, compared; then one interval of
+               11 frames at 512x640 through blend_video_frames (default
+               PatchMatchConfig, histogram blend, Poisson fusion): PSNR
+               against the known truth above its floor, and both new
+               kernels' launch counters must move.
+Every kernel line gives its time, its plain version's, its bound (the
+larger of bytes over 3.35 TB/s and operations over the data-sheet peak)
+and the library call's time where one computes the same function.  The
+line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -61,6 +77,18 @@ GRAM_APPLY_REL = 1e-5   # apply kernel vs S_kernel·v in float32
 # optimization sign() amplifies it to ~1e-1, so that path is held by the
 # gram phase and the slice's launch counters instead)
 SMALL_REL_FRO = 6e-2
+
+# H100 SXM data-sheet peaks at 700 W (the on-chip-measurement guide's table)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_CUDA_CORE_FLOPS = 67e12
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
+    """(least milliseconds for the work, what bounds it): the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def fail(msg: str) -> None:
@@ -124,12 +152,20 @@ def phase_flash(gen, dev):
         rel = (diff.norm() / ref.norm()).item()
         ms = cuda_ms(lambda: flash_attention(q, k, v, mask))
         plain_ms = cuda_ms(lambda: plain_attention_chunked(q, k, v, mask, qc), iters=2)
+        # the library call computing the same function (unmasked only: SDPA
+        # gives NaN on an empty row); timed here, never called by the port
+        lib_ms = (cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+                  if mask is None else None)
+        n_valid = skk if mask is None else int(mask.sum(1).max())
+        bnd = bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                    4 * b * h * sq * n_valid * d, BF16_TENSOR_FLOPS)
         print(f"flash {name:18s} B={b} H={h} Sq={sq} Sk={skk}: max|d|={err:.3e} (tol {FLASH_ATOL}), "
               f"max|ref|={ref.abs().max().item():.3e}, rel fro {rel:.3e} (tol {FLASH_REL_FRO}), "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
+              f"library (SDPA) {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
         if not (err <= FLASH_ATOL and rel <= FLASH_REL_FRO):
             fail(f"flash {name}: max|d| {err}, rel fro {rel}")
-        rows[name] = (ms, plain_ms)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms)
         max_err = max(max_err, err)
         del q, k, v, out, ref, diff
     # a batch row with no valid key must give exact zeros
@@ -186,33 +222,38 @@ def phase_gram(gen, dev):
         apply_rel = ((out - ref_ks).norm() / ref_ks.norm()).item()
         ms = cuda_ms(lambda: gk.sign_gram_apply(v, corr))
         plain_ms = cuda_ms(lambda: gk.sign_gram_plain(v, corr), iters=3)
+        # two products of 2·B·hw²·c; v and C read, the f32 output written
+        bnd = bound(v.numel() * v.element_size() + corr.numel() * corr.element_size() + out.numel() * 4,
+                    4 * b * hw * hw * c, BF16_TENSOR_FLOPS if dtype == bf16 else F32_CUDA_CORE_FLOPS)
         print(f"gram {str(dtype)[6:]} hw={hw} c={c} B={b}: rel fro {rel:.3e} (tol {GRAM_REL_FRO}), max|d|={err:.3e}, "
               f"flipped signs {flips}/{b * hw * hw} (largest |G-C| at a flip {tie_max:.2e}, tol {GRAM_TIE}), "
               f"apply vs S_kernel.v rel {apply_rel:.2e} (tol {GRAM_APPLY_REL}), "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), library none")
         if not (rel <= GRAM_REL_FRO and tie_max <= GRAM_TIE and apply_rel <= GRAM_APPLY_REL):
             fail(f"gram {dtype} hw={hw} c={c}: rel {rel}, tie {tie_max}, apply {apply_rel}")
-        rows[(dtype, hw, c)] = (ms, plain_ms)
+        rows[(dtype, hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
         max_err = max(max_err, err)
         del v, vf, vr, corr, out, ref, s_kernel, ref_ks
     return rows, max_err
 
 
-def make_inputs(seed: int, n: int, res: int):
+def make_inputs(seed: int, n: int, res):
     """Seeded frames: smoothed-noise texture under a sub-pixel global
     translation per frame plus a moving disc; their analytic
-    bidirectional flows; a Sobel edge detector."""
+    bidirectional flows; a Sobel edge detector.  ``res``: the frame edge,
+    or (height, width)."""
     from scipy import ndimage
 
+    h, w = (res, res) if isinstance(res, int) else res
     rng = np.random.default_rng(seed)
     pad = 48
-    tex = ndimage.gaussian_filter(rng.standard_normal((res + 2 * pad, res + 2 * pad, 3)), (3, 3, 0))
+    tex = ndimage.gaussian_filter(rng.standard_normal((h + 2 * pad, w + 2 * pad, 3)), (3, 3, 0))
     tex = (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
     shifts = np.cumsum(rng.uniform(-2.5, 2.5, (n, 2)), axis=0)  # (dx, dy) per frame
     shifts -= shifts[0]
-    centers = np.array([res * 0.3, res * 0.5]) + np.arange(n)[:, None] * np.array([res * 0.04, res * 0.01])
-    radius = res * 0.12
-    yy, xx = np.mgrid[0:res, 0:res].astype(np.float64)
+    centers = np.array([w * 0.3, h * 0.5]) + np.arange(n)[:, None] * np.array([w * 0.04, h * 0.01])
+    radius = min(h, w) * 0.12
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
     frames, discs = [], []
     for i in range(n):
         coords = [yy + pad - shifts[i, 1], xx + pad - shifts[i, 0]]
@@ -221,8 +262,8 @@ def make_inputs(seed: int, n: int, res: int):
         img[disc] = [235.0, 60.0, 40.0] + 15.0 * np.sin(xx[disc, None] / 6.0)
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
         discs.append(disc)
-    fwd = np.zeros((n, res, res, 2), np.float32)
-    bwd = np.zeros((n, res, res, 2), np.float32)
+    fwd = np.zeros((n, h, w, 2), np.float32)
+    bwd = np.zeros((n, h, w, 2), np.float32)
     for i in range(n):
         j = (i + 1) % n
         fwd[i] = shifts[j] - shifts[i]
@@ -365,6 +406,272 @@ def phase_slice(seed: int, dev):
     return launches
 
 
+# ---------------------------------------------------------------- propagation
+PROP_HW = (512, 640)     # the propagation slice's full width: a 512x640 video
+PE_REL = 1e-5            # patch evaluation: |de| / e where the argmin agrees; a near tie
+PE_MIN_AGREE = 0.999     # NNF entries on which kernel and plain keep the same match
+
+
+def style_of(frames: np.ndarray) -> np.ndarray:
+    """The 'stylization' of the propagation phases: a fixed per-pixel colour
+    transform (inverted, channels reversed), so the truth of every frame is
+    known."""
+    return np.ascontiguousarray(255 - frames[..., ::-1])
+
+
+def pair_flow_fn(frames, flows, dev):
+    """flow_fn over the frames of ``make_inputs``: each frame is told apart
+    by its pixel sum, and the pair's forward/backward flows are looked up
+    (consecutive frames, either direction)."""
+    n = len(frames)
+    index = {int(f.astype(np.int64).sum()): i for i, f in enumerate(frames)}
+    if len(index) != n:
+        fail("propagate: frames are not told apart by their sums")
+    flows_d = torch.from_numpy(flows).to(dev)
+
+    def flow_fn(a, b):
+        ids = [[index[int(round(x))] for x in t.reshape(t.shape[0], -1).double().sum(1).tolist()] for t in (a, b)]
+        fwd, bwd = [], []
+        for i, k in zip(*ids):
+            if k == i + 1:
+                fwd.append(flows_d[i])
+                bwd.append(flows_d[n + i])
+            elif k == i - 1:
+                fwd.append(flows_d[n + k])
+                bwd.append(flows_d[k])
+            else:
+                fail(f"propagate: flow of a non-adjacent pair ({i}, {k})")
+        return torch.stack(fwd + bwd)
+
+    return flow_fn
+
+
+def phase_gather(gen, dev):
+    """The row-gather kernel against index_select (its plain version and the
+    library call) at the vote's finest-level table and at the TPU probe's."""
+    from fresco_torch.propagate.gather import gather_rows, gather_rows_plain
+
+    rows = {}
+    n = PROP_HW[0] * PROP_HW[1]
+    for name, dtype, w in (("vote f32 W=75", torch.float32, 75), ("probe bf16 W=384", torch.bfloat16, 384)):
+        table = (torch.rand(n, w, generator=gen, device=dev) * 255).to(dtype)
+        idx = torch.randint(0, n, (n,), generator=gen, device=dev, dtype=torch.int32)
+        out = gather_rows(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(out, gather_rows_plain(table, idx)):
+            fail(f"gather {name}: not bit-equal to index_select")
+        ms = cuda_ms(lambda: gather_rows(table, idx))
+        plain_ms = cuda_ms(lambda: gather_rows_plain(table, idx))
+        bnd = bound(n * (2 * w * table.element_size() + 4), 0, 1.0)
+        print(f"gather {name}: {n} rows of {w * table.element_size()} B, random rows, bit-equal; "
+              f"kernel {ms:.4f} ms, plain = library (index_select) {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=plain_ms)
+        del table, idx, out
+    return rows
+
+
+def _patch_inputs(seed: int, dev, hw, seeded: bool):
+    """One PatchMatch iteration's inputs at a level of ``hw``: the source
+    [key style | frame | edge | key | positional] of frame 0 and the target
+    stack of frame 1 (the propagation stage's 15 channels), an NNF (the
+    identity plus small offsets at a seeded level, uniform at an unseeded
+    one) and its omega term."""
+    from fresco_torch.propagate import patchmatch as pm
+    from fresco_torch.propagate.guides import edge_guide, positional_first
+    from fresco_torch.propagate.video_blend import _guide_weights
+
+    h, w = hw
+    frames, _, _ = make_inputs(seed, 2, hw)
+    f = [torch.from_numpy(x).to(dev) for x in frames]
+    st = [torch.from_numpy(style_of(x)).to(dev) for x in frames]
+    pos = positional_first(h, w, dev)
+    src = torch.cat([st[0], f[0], edge_guide(f[0]), st[0], pos], -1).to(torch.bfloat16).contiguous()
+    tgt = torch.cat([st[1], f[1], edge_guide(f[1]), st[1], pos], -1).to(torch.bfloat16).contiguous()
+    weights = torch.cat([torch.full((3,), 1 / 3, device=dev), _guide_weights(dev)])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if seeded:
+        yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+        jit = torch.randint(-2, 3, (2, h, w), generator=g, device=dev)
+        nnf = torch.stack([(yy + jit[0]).clamp(0, h - 1), (xx + jit[1]).clamp(0, w - 1)], -1)
+    else:
+        nnf = torch.stack([torch.randint(2, h - 2, (h, w), generator=g, device=dev),
+                           torch.randint(2, w - 2, (h, w), generator=g, device=dev)], -1)
+    nnf = nnf.to(torch.int32).contiguous()
+    omega = ((3500.0 / 25.0) * pm._omega(nnf[..., 0], nnf[..., 1], h, w, 5)).to(torch.bfloat16)
+    return src, tgt, weights, omega, nnf, g
+
+
+def _check_patch_eval(name, args, patch, out, ref):
+    """Near-tie rule: the NNF agrees on PE_MIN_AGREE of the pixels, the
+    errors agree to PE_REL where it does, and every other pixel's match is
+    one the plain arithmetic reaches when near-tie comparisons go either
+    way (``near_tie_matches``).  Returns the largest |de| seen."""
+    from fresco_torch.propagate.patch_eval import near_tie_matches, patch_eval_plain
+
+    src, tgt, weights, omega = args[:4]
+    (kn, ke), (pn, pe) = out, ref
+    same = (kn == pn).all(-1)
+    agree = same.float().mean().item()
+    if agree < PE_MIN_AGREE:
+        fail(f"patch_eval {name}: NNF agreement {agree} < {PE_MIN_AGREE}")
+    fin = same & torch.isfinite(pe)
+    rel_same = ((ke - pe).abs() / pe.abs().clamp_min(1e-30))[fin].max().item() if bool(fin.any()) else 0.0
+    max_err = (ke - pe).abs()[fin].max().item() if bool(fin.any()) else 0.0
+    tie_abs, unexplained = 0.0, []
+    if not bool(same.all()):
+        _, e_k = patch_eval_plain(src, tgt, weights, omega, kn, None, patch=patch)
+        tie_abs = (e_k - pe).abs()[~same].max().item()
+        for y, x in torch.nonzero(~same).tolist():
+            reach = near_tie_matches(*args[:8], y, x, patch=patch, rel=PE_REL)
+            if tuple(kn[y, x].tolist()) not in reach:
+                unexplained.append((y, x))
+    print(f"patch_eval {name}: NNF agreement {agree:.6f} (min {PE_MIN_AGREE}), max rel |de| where the argmin "
+          f"agrees {rel_same:.2e} (tol {PE_REL}); {int((~same).sum())} disagreements, largest |de| at one "
+          f"{tie_abs:.3e}, {len(unexplained)} not reached through a near tie (tol {PE_REL})")
+    if not (rel_same <= PE_REL and not unexplained):
+        fail(f"patch_eval {name}: rel {rel_same}, unexplained disagreements {unexplained[:5]}")
+    return max_err
+
+
+def phase_patch_eval(seed: int, dev):
+    """The candidate-evaluation kernel against its plain version at the
+    finest level (512x640, C = 15): 15 candidates at a seeded level (shifts
+    1,2,4 and 3 random), 20 at an unseeded one (shifts 1,2,4,8 and 4
+    random); a ragged active set (compaction); patch 3 without omega."""
+    from fresco_torch.propagate.patch_eval import active_set, patch_eval, patch_eval_plain
+
+    h, w = PROP_HW
+    rows, max_err = {}, 0.0
+    cases = [("seeded 15 cand", True, (1, 2, 4), [160, 80, 40], 5, False),
+             ("unseeded 20 cand", False, (1, 2, 4, 8), [320, 160, 80, 40], 5, False),
+             ("compact ragged 15 cand", True, (1, 2, 4), [160, 80, 40], 5, True),
+             ("patch 3 15 cand", True, (1, 2, 4), [160, 80, 40], 3, False)]
+    for name, seeded, shifts, radii, patch, compact in cases:
+        src, tgt, weights, omega, nnf, g = _patch_inputs(seed, dev, (h, w), seeded)
+        if patch == 3:
+            omega = None
+        deltas = torch.stack([torch.randint(-r, r + 1, (h, w, 2), generator=g, device=dev, dtype=torch.int32)
+                              for r in radii])
+        act, n_pix = None, h * w
+        if compact:
+            blobs = torch.rand(h // 16, w // 16, generator=g, device=dev) > 0.9
+            blobs[0, 1] = True
+            mask = torch.nn.functional.interpolate(blobs[None, None].float(), size=(h, w))[0, 0] > 0
+            mask &= torch.rand(h, w, generator=g, device=dev) > 0.3
+            act, n_pix = active_set(mask), int(mask.sum())
+        # the one-candidate set first: the current match's error (be0)
+        be0_args = (src, tgt, weights, omega, nnf, None, (), None, act)
+        out0 = patch_eval(*be0_args, patch=patch)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _check_patch_eval(name + " (be0)", be0_args, patch, out0,
+                                                 patch_eval_plain(*be0_args, patch=patch)))
+        args = (src, tgt, weights, omega, out0[0], out0[1], shifts, deltas, act)
+        out = patch_eval(*args, patch=patch)
+        torch.cuda.synchronize()
+        ref = patch_eval_plain(*args, patch=patch)
+        max_err = max(max_err, _check_patch_eval(name, args, patch, out, ref))
+        if compact and not (torch.equal(out[0][~mask], out0[0][~mask]) and torch.equal(out[1][~mask], out0[1][~mask])):
+            fail("patch_eval compact: a frozen pixel changed")
+        n_cand = 4 * len(shifts) + len(radii)
+        ms = cuda_ms(lambda: patch_eval(*args, patch=patch))
+        plain_ms = cuda_ms(lambda: patch_eval_plain(*args, patch=patch), iters=2)
+        c = src.shape[-1]
+        n_bytes = (src.numel() + tgt.numel()) * 2 + (0 if omega is None else omega.numel() * 2) \
+            + h * w * (8 + 4) + deltas.numel() * 4 + n_pix * (8 + 4)
+        bnd = bound(n_bytes, n_pix * n_cand * patch * patch * c * 4, F32_CUDA_CORE_FLOPS)
+        ns_k, ns_p = ms * 1e6 / (n_pix * n_cand), plain_ms * 1e6 / (n_pix * n_cand)
+        print(f"patch_eval {name}: {n_pix} pixels x {n_cand} candidates, kernel {ms:.4f} ms ({ns_k:.4f} ns per "
+              f"candidate), plain {plain_ms:.3f} ms ({ns_p:.3f} ns), bound {bnd[0]:.4f} ms ({bnd[1]}), library none")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    return rows, max_err
+
+
+def _psnr(out: dict, truth: list, idx) -> float:
+    mse = np.mean([np.mean((out[i].astype(np.float64) - truth[i]) ** 2) for i in idx])
+    return float(10 * np.log10(255.0 ** 2 / mse))
+
+
+# first reading 37.273 dB (H100 80GB HBM3, 700 W; the run is deterministic:
+# seeded draws, integer omega counts); a lost candidate set or a broken blend
+# costs several dB
+PROP_PSNR_FLOOR = 36.0
+
+
+def phase_propagate(seed: int, dev):
+    """One interval of 11 frames (keys 0 and 10) at 512x640 through the
+    port's in-memory blend_video_frames, default PatchMatchConfig,
+    histogram blend and Poisson fusion."""
+    from fresco_torch.propagate.gather import gather_rows
+    from fresco_torch.propagate.patch_eval import patch_eval
+    from fresco_torch.propagate.video_blend import blend_video_frames
+
+    n = 11
+    frames, flows, _ = make_inputs(seed, n, PROP_HW)
+    truth = [style_of(f) for f in frames]
+    flow_fn = pair_flow_fn(frames, flows, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_rows.launches = 0
+    patch_eval.launches = 0
+    tm: dict = {}
+    t0 = time.perf_counter()
+    out = blend_video_frames(dict(enumerate(frames)), {0: truth[0], n - 1: truth[n - 1]}, [0, n - 1],
+                             flow_fn=flow_fn, device=dev, timers_out=tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"row_gather": gather_rows.launches, "patch_eval": patch_eval.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    psnr = _psnr(out, truth, range(1, n - 1))
+    print("propagate phases (s, host wall, overlapping): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(tm.items(), key=lambda kv: -kv[1])))
+    print(f"propagate: {n} frames {PROP_HW[0]}x{PROP_HW[1]}, 1 interval, wall {wall:.2f} s, peak device memory "
+          f"{peak_gb:.2f} GiB, launches {launches}, PSNR vs truth {psnr:.3f} dB (floor {PROP_PSNR_FLOOR})")
+    if sorted(out) != list(range(n)) or any(out[i].shape != (*PROP_HW, 3) or out[i].dtype != np.uint8 for i in out):
+        fail("propagate: wrong frames out")
+    if not (np.array_equal(out[0], truth[0]) and np.array_equal(out[n - 1], truth[n - 1])):
+        fail("propagate: a keyframe did not pass through unchanged")
+    if not psnr >= PROP_PSNR_FLOOR:
+        fail(f"propagate: PSNR {psnr} below {PROP_PSNR_FLOOR}")
+    if min(launches.values()) <= 0:
+        fail(f"propagate did not launch every kernel: {launches}")
+    return launches
+
+
+# 64x80, card vs CPU with the same draws: first reading NNF agreement 1.0 and
+# mean |d| 0.0152 levels; a near tie decided the other way changes the
+# random-search path after it, and its chain from there on
+SMALL_PROP_AGREE = 0.99     # NNF agreement, one synthesize
+SMALL_PROP_MEAN_ABS = 0.5   # mean |d| of the blended interval, uint8 levels
+
+
+def phase_small_propagate(seed: int, dev):
+    """64x80: one synthesize and one 11-frame interval on the card (kernels)
+    and on the CPU (plain versions) with the same draws (made on the CPU)."""
+    from fresco_torch.propagate.patchmatch import PatchMatchConfig, TorchDraws, synthesize
+    from fresco_torch.propagate.video_blend import blend_video_frames
+
+    hw, n = (64, 80), 11
+    src, tgt, weights, _, _, _ = _patch_inputs(seed, dev, hw, True)
+    nnfs = []
+    for d in (dev, torch.device("cpu")):
+        s, t = src.to(d).float(), tgt.to(d).float()
+        _, _, nnf = synthesize(s[..., :3], s[..., 3:], t[..., 3:], weights[3:].to(d), PatchMatchConfig(),
+                               draws=TorchDraws(seed, d, "cpu"))
+        nnfs.append(nnf.cpu())
+    agree = (nnfs[0] == nnfs[1]).all(-1).float().mean().item()
+    frames, flows, _ = make_inputs(seed, n, hw)
+    truth = [style_of(f) for f in frames]
+    outs = [blend_video_frames(dict(enumerate(frames)), {0: truth[0], n - 1: truth[n - 1]}, [0, n - 1],
+                               flow_fn=pair_flow_fn(frames, flows, d), device=d, draw_device="cpu")
+            for d in (dev, torch.device("cpu"))]
+    mad = float(np.mean([np.abs(outs[0][i].astype(np.float64) - outs[1][i]).mean() for i in range(1, n - 1)]))
+    print(f"small propagation (64x80): synthesize NNF agreement card vs CPU {agree:.5f} (min {SMALL_PROP_AGREE}); "
+          f"interval of {n} frames mean |d| {mad:.4f} levels (max {SMALL_PROP_MEAN_ABS}); PSNR vs truth card "
+          f"{_psnr(outs[0], truth, range(1, n - 1)):.3f} dB, CPU {_psnr(outs[1], truth, range(1, n - 1)):.3f} dB")
+    if not (agree >= SMALL_PROP_AGREE and mad <= SMALL_PROP_MEAN_ABS):
+        fail(f"small propagation: agreement {agree}, mean |d| {mad}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -385,24 +692,32 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.load()
-    print(f"build: {kernels.build_info.path} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {kernels.build_info.seconds:.2f} s)")
+    print(f"build: {len(kernels.build_info.paths)} libraries, one nvcc per source in parallel, "
+          f"{time.perf_counter() - t0:.2f} s (nvcc wall {kernels.build_info.seconds:.2f} s)")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     flash_rows, flash_err = phase_flash(gen, dev)
     gram_rows, gram_err = phase_gram(gen, dev)
     phase_small(args.seed, dev)
     launches = phase_slice(args.seed, dev)
+    gather_rows_ = phase_gather(gen, dev)
+    pe_rows, pe_err = phase_patch_eval(args.seed, dev)
+    phase_small_propagate(args.seed, dev)
+    launches.update(phase_propagate(args.seed, dev))
 
-    f_ms, f_plain = flash_rows["self d=40"]
-    g_ms, g_plain = gram_rows[(torch.bfloat16, 4096, 640)]
+    def row(name, source, replaces, err, r):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": err, **r}
+
     table = {"kernels": [
-        {"name": "flash_attn_fwd", "route": "cuda", "source": "fresco_torch/csrc/flash_attn.cu",
-         "replaces": "fresco_tpu/attention/flash.py:31", "launches": launches["flash_attn_fwd"],
-         "max_abs_err": flash_err, "ms": f_ms, "plain_ms": f_plain},
-        {"name": "sign_gram", "route": "cuda", "source": "fresco_torch/csrc/sign_gram.cu",
-         "replaces": "fresco_tpu/ops/gram_kernel.py:30", "launches": launches["sign_gram"],
-         "max_abs_err": gram_err, "ms": g_ms, "plain_ms": g_plain},
+        row("flash_attn_fwd", "fresco_torch/csrc/flash_attn.cu", "fresco_tpu/attention/flash.py:31", flash_err,
+            flash_rows["self d=40"]),
+        row("sign_gram", "fresco_torch/csrc/sign_gram.cu", "fresco_tpu/ops/gram_kernel.py:30", gram_err,
+            gram_rows[(torch.bfloat16, 4096, 640)]),
+        row("row_gather", "fresco_torch/csrc/row_gather.cu", "scripts/bench_pallas_gather.py:31", 0.0,
+            gather_rows_["vote f32 W=75"]),
+        row("patch_eval", "fresco_torch/csrc/patch_eval.cu", "scripts/bench_fused_eval.py:94", pe_err,
+            pe_rows["seeded 15 cand"]),
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

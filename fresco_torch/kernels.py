@@ -1,13 +1,15 @@
 """Build and load the hand-written CUDA kernels of ``fresco_torch/csrc``.
 
-The sources are compiled with ``nvcc`` at first use into one shared
-library with a plain C interface, loaded with ``ctypes``:
+Each ``csrc/*.cu`` is compiled with ``nvcc`` at first use into a shared
+library of its own with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build>/libfresco_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -o <build>/lib<source>_<hash>.so csrc/<source>.cu
 
-No PyTorch headers are included, so the build takes seconds.  The library
-name carries a hash of the sources and flags, so an edited source is
+All the ``nvcc`` processes are started together and waited for, so the
+build takes as long as the slowest source.  No PyTorch headers are
+included, so that is seconds.  A library's name carries a hash of its
+source, the shared headers and the flags, so an edited source is
 rebuilt; the build directory ``fresco_torch/_build`` is listed in
 ``.gitignore``.  Nothing here runs at import time: the CPU tests import
 every module of the package.
@@ -30,27 +32,44 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
-    "fresco_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_L] * 13 + [ctypes.c_float, _P],
+    "fresco_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_L] * 13 + [_F, _P],
     "fresco_sign_gram_sign": [_P] * 3 + [_I] * 5 + [_P],
     "fresco_sign_gram_apply": [_P] * 3 + [_I] * 5 + [_P],
+    # table, idx, out, n_rows, k, row_bytes, stream
+    "fresco_row_gather": [_P] * 3 + [_L, _L, _L, _P],
+    # src, tgt, weights, omega, nnf_in, e_in, nnf_out, e_out, deltas, tiles, mask,
+    # sh, sw, th, tw, cp, patch, n_shift, shift values (host), n_rand, n_tiles, stream
+    "fresco_patch_eval": [_P] * 11 + [_I] * 7 + [_P, _I, _I, _P],
 }
 
 
 class BuildInfo:
-    """What the last ``load`` did: library path and build seconds (0.0 when
-    a built library was reused)."""
+    """What the last ``load`` did: library paths and wall seconds of the
+    parallel build (0.0 when every library was reused)."""
 
-    path: str | None = None
+    paths: list[str] = []
     seconds: float = 0.0
 
 
-_lib: ctypes.CDLL | None = None
+class _Kernels:
+    """The loaded libraries; attribute access finds a function in any."""
+
+    def __init__(self, libs: list[ctypes.CDLL]):
+        self._libs = libs
+
+    def __getattr__(self, name: str):
+        for lib in self._libs:
+            try:
+                return getattr(lib, name)
+            except AttributeError:
+                continue
+        raise AttributeError(name)
+
+
+_lib: _Kernels | None = None
 build_info = BuildInfo()
-
-
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -64,30 +83,45 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def load() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; idempotent."""
+def _library_path(src: str, flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(f, "rb") as fh:
+            h.update(os.path.basename(f).encode() + fh.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def load() -> _Kernels:
+    """Compile (if needed, all sources at once) and load the kernel
+    libraries; idempotent."""
     global _lib
     if _lib is not None:
         return _lib
     flags = ARCH_FLAGS + NVCC_FLAGS
-    h = hashlib.sha256(" ".join(flags).encode())
-    for src in _sources():
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"libfresco_kernels_{h.hexdigest()[:16]}.so")
-    build_info.path = path
-    if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *flags, "-o", tmp,
-               *[s for s in _sources() if s.endswith(".cu")]]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_info.seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    paths = [_library_path(s, flags) for s in srcs]
+    build_info.paths = paths
+    t0 = time.perf_counter()
+    procs = []
+    for src, path in zip(srcs, paths):
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            procs.append((src, path, tmp, subprocess.Popen(
+                [_nvcc(), *flags, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for src, path, tmp, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{os.path.basename(src)} ({p.returncode}):\n{out}")
+        else:
+            os.replace(tmp, path)
+    build_info.seconds = time.perf_counter() - t0 if procs else 0.0
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    lib = _Kernels([ctypes.CDLL(p) for p in paths])
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

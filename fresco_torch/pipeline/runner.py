@@ -7,8 +7,8 @@ inter/intra-frame params, attention params), ``_run_batch`` (the denoise
 loop) and ``decode`` — the calls ``translate_keyframes`` makes per batch.
 
 Flows enter through ``ModelBundle.flow_fn`` (GMFlow is not ported yet),
-the control detector through ``ModelBundle.detector`` (canny by default,
-``cv2`` imported lazily).  ``build_models`` initializes random weights
+the control detector through ``ModelBundle.detector`` (none by default:
+canny is OpenCV's, which the port does not use, and HED is not ported).  ``build_models`` initializes random weights
 with Flax's default initializers from a seeded ``torch.Generator``;
 weights of the JAX package load through ``models/convert.py``.
 """
@@ -53,10 +53,19 @@ class ModelBundle:
     flow_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None
 
 
-def _canny_detector(img: np.ndarray, low: int = 50, high: int = 100) -> np.ndarray:
-    import cv2
+def _no_detector(img: np.ndarray) -> np.ndarray:
+    raise NotImplementedError(
+        "no control detector: canny needs OpenCV and HED is not ported (ROADMAP Slice 5); "
+        "set ModelBundle.detector")
 
-    return cv2.Canny(img, low, high)
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """``None`` means the card; the CPU runs only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
 
 
 def _local_ckpt_dir(spec, ckpt_dir: str) -> str | None:
@@ -78,14 +87,15 @@ def model_dtype(config: FrescoConfig) -> torch.dtype:
 
 
 def build_models(config: FrescoConfig, *, tiny: bool = False, seed: int = 0,
-                 device: torch.device | str = "cpu") -> ModelBundle:
+                 device: torch.device | str | None = None) -> ModelBundle:
     """Random-weight model stack at full SD1.5 width or tiny widths.
 
     Modules are built on the meta device and materialized once on
     ``device``; weights are drawn from a ``torch.Generator`` seeded with
-    ``seed`` on that device.  The UNet, ControlNet and VAE run in
-    ``config.dtype``; the text encoder in float32."""
-    device = torch.device(device)
+    ``seed`` on that device (``None``: the card; it raises without one).
+    The UNet, ControlNet and VAE run in ``config.dtype``; the text encoder
+    in float32."""
+    device = resolve_device(device)
     if tiny:
         ucfg, vcfg, ccfg = UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny()
         cond_embed = (4, 4, 8, 8)
@@ -117,10 +127,9 @@ def build_models(config: FrescoConfig, *, tiny: bool = False, seed: int = 0,
     tokenizer = make_tokenizer(
         _local_ckpt_dir(config.sd_path, os.path.dirname(str(config.gmflow_path)) or "."),
         ccfg.vocab_size)
-    detector = lambda img: _canny_detector(img, config.canny_low, config.canny_high)  # noqa: E731
     return ModelBundle(unet, vae, controlnet, text,
                        DDPMScheduler(num_inference_steps=config.num_inference_steps),
-                       tokenizer, detector, device)
+                       tokenizer, _no_detector, device)
 
 
 class PhaseTimes:
@@ -141,7 +150,7 @@ class FrescoPipeline:
     sync_phases = False
 
     def __init__(self, config: FrescoConfig, bundle: ModelBundle | None = None, *,
-                 tiny: bool = False, device: torch.device | str = "cpu"):
+                 tiny: bool = False, device: torch.device | str | None = None):
         self.config = config
         self.bundle = bundle or build_models(config, tiny=tiny, seed=config.seed, device=device)
         b = self.bundle

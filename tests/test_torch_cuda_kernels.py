@@ -5,7 +5,11 @@ This file imports neither jax nor the JAX package, so it runs on a GPU
 machine that has only PyTorch: from the repo root,
 ``python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py``.
 
-Tolerances.  Flash: 5e-3 absolute and 1e-2 relative Frobenius on
+Tolerances.  Row gather: bit-equal to index_select.  Patch evaluation:
+where kernel and plain keep the same match their float32 errors agree to
+1e-5 relative (other summation order); elsewhere, on at most 0.1 % of
+pixels, the kernel's match must be one the plain arithmetic reaches when
+comparisons within 1e-5 relative of a tie go either way.  Flash: 5e-3 absolute and 1e-2 relative Frobenius on
 unit-variance inputs — the kernel rounds P to bf16 and writes bf16, the
 plain version is float32 math on the same bf16 inputs; a skipped or
 doubled key tile moves either far more.  Sign-gram (bf16 and float32):
@@ -66,3 +70,76 @@ def test_sign_gram_kernel_matches_plain(cuda_device, b, hw, c, dtype):
     ref = sign_gram_plain(v, corr)
     rel = ((out - ref).norm() / ref.norm()).item()
     assert rel < 1e-5, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,w", [(torch.float32, 75), (torch.bfloat16, 384), (torch.bfloat16, 3),
+                                     (torch.float32, 8), (torch.uint8, 5)])
+def test_row_gather_kernel_bit_equal(cuda_device, dtype, w):
+    from fresco_torch.propagate.gather import gather_rows, gather_rows_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n, k = 1000, 777
+    table = (torch.rand(n, w, device=cuda_device, generator=g) * 200).to(dtype)
+    idx = torch.randint(0, n, (k,), device=cuda_device, generator=g, dtype=torch.int32)
+    before = gather_rows.launches
+    out = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(out, gather_rows_plain(table, idx))
+    bad = torch.tensor([-1, n], dtype=torch.int32, device=cuda_device)
+    assert (gather_rows(table, bad) == 0).all()
+
+
+def _patch_inputs(dev, sh, sw, th, tw, c, patch, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = patch // 2
+    src = (torch.rand(sh, sw, c, device=dev, generator=g) * 255).to(torch.bfloat16)
+    tgt = (torch.rand(th, tw, c, device=dev, generator=g) * 255).to(torch.bfloat16)
+    weights = torch.rand(c, device=dev, generator=g)
+    omega = (torch.rand(sh, sw, device=dev, generator=g) * 3000).to(torch.bfloat16)
+    nnf = torch.stack([torch.randint(-3, sh + 3, (th, tw), device=dev, generator=g),
+                       torch.randint(-3, sw + 3, (th, tw), device=dev, generator=g)], -1).to(torch.int32)
+    deltas = torch.randint(-9, 10, (3, th, tw, 2), device=dev, generator=g, dtype=torch.int32)
+    mask = torch.rand(th, tw, device=dev, generator=g) > 0.7
+    mask[:16, :16] = False  # one whole frozen tile
+    return src, tgt, weights, omega, nnf, deltas, mask, r
+
+
+def assert_near_tie_agreement(args, out, ref, patch, rel=1e-5, min_agree=0.999):
+    """Where the kernel and the plain version keep the same match their
+    errors agree to ``rel``; elsewhere the kernel's match must be one the
+    plain arithmetic reaches when near-tie comparisons go either way."""
+    from fresco_torch.propagate.patch_eval import near_tie_matches
+
+    (kn, ke), (pn, pe) = out, ref
+    same = (kn == pn).all(-1)
+    assert same.float().mean().item() >= min_agree
+    fin = torch.isfinite(pe) & same
+    assert torch.allclose(ke[fin], pe[fin], rtol=rel, atol=0)
+    for y, x in torch.nonzero(~same).tolist():
+        assert tuple(kn[y, x].tolist()) in near_tie_matches(*args[:8], y, x, patch=patch, rel=rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,patch", [(15, 5), (15, 3), (20, 5)])
+@pytest.mark.parametrize("mode", ["be0", "candidates", "full_sweep", "compact"])
+def test_patch_eval_kernel_matches_plain(cuda_device, c, patch, mode):
+    from fresco_torch.propagate.patch_eval import active_set, patch_eval, patch_eval_plain
+
+    src, tgt, weights, omega, nnf, deltas, mask, r = _patch_inputs(cuda_device, 40, 56, 37, 45, c, patch)
+    _, e0 = patch_eval_plain(src, tgt, weights, omega, nnf, None, patch=patch)
+    if mode == "be0":
+        args = (src, tgt, weights, omega, nnf, None, (), None, None)
+    else:
+        nnf0 = torch.stack([nnf[..., 0].clamp(r, 39 - r), nnf[..., 1].clamp(r, 55 - r)], -1)
+        act = None if mode == "candidates" else active_set(mask, compact=mode == "compact")
+        args = (src, tgt, weights, omega, nnf0, e0, (1, 2, 4, 8), deltas, act)
+    before = patch_eval.launches
+    out = patch_eval(*args, patch=patch)
+    torch.cuda.synchronize()
+    assert patch_eval.launches == before + 1
+    ref = patch_eval_plain(*args, patch=patch)
+    assert_near_tie_agreement(args, out, ref, patch)
+    if mode in ("full_sweep", "compact"):  # frozen pixels keep their inputs
+        assert torch.equal(out[0][~mask], args[4][~mask]) and torch.equal(out[1][~mask], e0[~mask])

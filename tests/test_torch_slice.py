@@ -145,11 +145,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "from fresco_torch.core.config import FrescoConfig\n"
         "from fresco_torch.pipeline.runner import build_models\n"
-        "b = build_models(FrescoConfig(dtype='float32'), tiny=True)\n"
+        "b = build_models(FrescoConfig(dtype='float32'), tiny=True, device='cpu')\n"
         "with torch.no_grad():\n"
         "    b.unet(torch.zeros(2, 8, 8, 4), 10, torch.zeros(2, 77, 32))\n"
         "    b.vae.decode(torch.zeros(1, 8, 8, 4))\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'flax', 'optax') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'cv2') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
