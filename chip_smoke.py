@@ -78,7 +78,7 @@ GRAM_APPLY_REL = 1e-5   # apply kernel vs S_kernel·v in float32
 # gram phase and the slice's launch counters instead)
 SMALL_REL_FRO = 6e-2
 
-# H100 SXM data-sheet peaks at 700 W (the on-chip-measurement guide's table)
+# H100 SXM data-sheet peaks at 700 W
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_CUDA_CORE_FLOPS = 67e12
