@@ -37,7 +37,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                11 frames at 512x640 through blend_video_frames (default
                PatchMatchConfig, histogram blend, Poisson fusion): PSNR
                against the known truth above its floor, and both new
-               kernels' launch counters must move.
+               kernels' launch counters must move;
+  9. gemm    : the batched-GEMM microbench (fresco_torch.scripts.bench_gemm,
+               its four rows beside torch's bf16 product), then the kernel
+               against its float32 plain version at those rows and two
+               ragged shapes;
+ 10. aux     : GMFlow, HED and EGNet at full width, 64 px, on the card and on
+               the CPU with the same float32 weights, compared; then 8
+               frames at 512x512 on the card in the pipeline's dtypes
+               (GMFlow float32 on bf16-rounded weights, EGNet bf16, HED
+               float32), timed;
+ 11. e2e     : the whole keyframe stage and propagation of a 41-frame
+               512x512 clip (make_inputs) at full width with config_music's
+               settings: keyframe selection (intervals cut to 3..5, so 11
+               keyframes in 2 batches), GMFlow flows, HED control, EGNet
+               background smoothing at steps 16 and 17, the latent record
+               carried, then blend_video_frames with GMFlow flows.  All four
+               main-path kernels' launch counters must move; the keyframes
+               must pass through propagation unchanged.  Phases are
+               synchronized, so the breakdown is device time.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak)
 and the library call's time where one computes the same function.  The
@@ -59,16 +77,17 @@ import torch
 
 # flash, bf16 kernel vs float32 math on the same bf16 inputs: the kernel
 # rounds P to bf16 and writes bf16.  Measured max |d| 5.2e-4 to 2.2e-3 over
-# the shapes below; dropping one 64-key tile at S = 4096 moves the output
-# by ~1.8e-2 at its maximum.
+# the shapes below (H100 80GB HBM3, 700 W); dropping one 64-key tile at
+# S = 4096 moves the output by ~1.8e-2 at its maximum.
 FLASH_ATOL = 5e-3
 # and the relative Frobenius error, ||d|| / ||ref||, which a wrong tile or
 # a lost row moves by far more than rounding does
 FLASH_REL_FRO = 1e-2
 GRAM_REL_FRO = 5e-2     # sign-gram vs plain, relative Frobenius (near-tie sign flips)
 # |G - C| at any flipped sign: G is accumulated in float32 in both, so a
-# flip may only come from summation order (measured <= 1.2e-6); rounding G
-# to bf16 before the subtraction would flip signs up to |G - C| ~ 4e-3.
+# flip may only come from summation order (measured <= 1.2e-6 on an H100
+# 80GB HBM3 at 700 W); rounding G to bf16 before the subtraction would flip
+# signs up to |G - C| ~ 4e-3.
 GRAM_TIE = 1e-4
 GRAM_APPLY_REL = 1e-5   # apply kernel vs S_kernel·v in float32
 # small batch without the feature optimization, bf16 kernels on the card vs
@@ -637,8 +656,9 @@ def phase_propagate(seed: int, dev):
     return launches
 
 
-# 64x80, card vs CPU with the same draws: first reading NNF agreement 1.0 and
-# mean |d| 0.0152 levels; a near tie decided the other way changes the
+# 64x80, card vs CPU with the same draws: first reading (H100 80GB HBM3,
+# 700 W) NNF agreement 1.0 and mean |d| 0.0152 levels; a near tie decided
+# the other way changes the
 # random-search path after it, and its chain from there on
 SMALL_PROP_AGREE = 0.99     # NNF agreement, one synthesize
 SMALL_PROP_MEAN_ABS = 0.5   # mean |d| of the blended interval, uint8 levels
@@ -670,6 +690,197 @@ def phase_small_propagate(seed: int, dev):
           f"{_psnr(outs[0], truth, range(1, n - 1)):.3f} dB, CPU {_psnr(outs[1], truth, range(1, n - 1)):.3f} dB")
     if not (agree >= SMALL_PROP_AGREE and mad <= SMALL_PROP_MEAN_ABS):
         fail(f"small propagation: agreement {agree}, mean |d| {mad}")
+
+
+# ---------------------------------------------------------------- gemm, aux, e2e
+# bmm vs float32 plain: sums of exact bf16 products in two orders (first
+# reading 4.5e-6 at K = 4096; H100 80GB HBM3, 700 W)
+GEMM_REL_FRO = 1e-5
+# full-width aux models, card vs CPU, float32 weights on both (TF32 off): the
+# flows may differ where the global softmax is near a tie between matches.
+# First reading (H100 80GB HBM3, 700 W): flows mean |d| 2.1e-4 px, max
+# 2.2e-3 px, on flows up to 60 px; HED 2.3e-6; EGNet mask 6.5e-6
+AUX_FLOW_MEAN = 0.01     # px, mean |d| of the flows
+AUX_FLOW_FAR = 0.01      # share of flow vectors more than 0.1 px apart
+AUX_EDGE_ATOL = 1e-4     # HED edge map in [0, 1]
+AUX_MASK_ATOL = 1e-3     # EGNet background mask in [0, 1]
+
+
+def phase_gemm(gen, dev):
+    """The microbench entry point, counted; then every row (and two ragged
+    shapes) against the float32 plain version."""
+    from fresco_torch.scripts import bench_gemm as bg
+
+    bg.bmm.launches = 0
+    results = bg.run(iters=10, seed=0)
+    launches = bg.bmm.launches
+    timed = {(r["row"], r["route"]): r for r in results}
+    for r in results:
+        print(f"gemm bench {r['row']:44s} {r['route']:18s}: {r['ms']:8.3f} ms {r['tflops']:7.1f} TFLOP/s")
+    cases = bg.rows(torch.Generator(device=dev).manual_seed(0), dev)
+    cases.append(("ragged [3,1000,1000]x[3,1000,700]",
+                  torch.randn(3, 1000, 1000, generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn(3, 1000, 700, generator=gen, device=dev).to(torch.bfloat16)))
+    cases.append(("ragged K%8 [2,77,133]x[2,133,45]",
+                  torch.randn(2, 77, 133, generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn(2, 133, 45, generator=gen, device=dev).to(torch.bfloat16)))
+    rows, max_err = {}, 0.0
+    for name, a, x in cases:
+        ref = bg.bmm_plain(a, x)
+        out = bg.bmm(a, x)
+        torch.cuda.synchronize()
+        rel = ((out - ref).norm() / ref.norm()).item()
+        err = (out - ref).abs().max().item()
+        max_err = max(max_err, err)
+        print(f"gemm {name:44s}: rel fro {rel:.2e} (tol {GEMM_REL_FRO}), max|d| {err:.2e}")
+        if not rel <= GEMM_REL_FRO:
+            fail(f"gemm {name}: rel fro {rel}")
+        if (name, "bmm") in timed:
+            ms = timed[(name, "bmm")]["ms"]
+            lib_ms = timed[(name, "torch.matmul bf16")]["ms"]
+            plain_ms = cuda_ms(lambda: bg.bmm_plain(a, x), iters=2)
+            bnd = bound(2 * (a.numel() + x.numel()) + 4 * ref.numel(), bg.flops(a, x), BF16_TENSOR_FLOPS)
+            print(f"gemm {name}: kernel {ms:.3f} ms ({bg.flops(a, x) / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+                  f"bound {bnd[0]:.3f} ms ({bnd[1]}), library (torch bf16 product) {lib_ms:.3f} ms")
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms)
+        del ref, out
+    print(f"gemm: microbench launches {launches}")
+    if launches <= 0:
+        fail("gemm: the microbench did not launch the kernel")
+    return rows, max_err, launches
+
+
+def _full_width_aux(seed: int):
+    """Full-width GMFlow, HED and EGNet on the CPU, float32, seeded."""
+    from fresco_torch.models.egnet import EGNet
+    from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
+    from fresco_torch.models.hed import HED
+    from fresco_torch.models.layers import init_flax_default_
+
+    gen = torch.Generator().manual_seed(seed)
+    return [init_flax_default_(m, gen).eval().requires_grad_(False) for m in (GMFlow(GMFlowConfig()), HED(), EGNet())]
+
+
+def phase_aux(seed: int, dev, big: bool = True):
+    from fresco_torch.models.egnet import make_saliency_fn
+    from fresco_torch.models.hed import hed_detector
+
+    cpu = torch.device("cpu")
+    mods = _full_width_aux(seed)
+    frames, _, _ = make_inputs(seed, 3, 64)
+    x = torch.from_numpy(np.stack(frames)).float()
+    outs = []
+    for d in (dev, cpu):
+        gm, hed, eg = (copy.deepcopy(m).to(d) for m in mods)
+        flow = gm(x.to(d), torch.roll(x, -1, 0).to(d)).cpu()
+        edge = hed(x.to(d)).cpu()
+        mask = make_saliency_fn(eg)(np.stack(frames)).cpu()
+        outs.append((flow, edge, mask))
+    (f0, e0, m0), (f1, e1, m1) = outs
+    fd = (f0 - f1).norm(dim=-1)
+    flow_mean, flow_far = fd.mean().item(), (fd > 0.1).float().mean().item()
+    edge_err, mask_err = (e0 - e1).abs().max().item(), (m0 - m1).abs().max().item()
+    print(f"aux 64 px, full width, float32 card vs CPU: GMFlow |flow| max {f1.norm(dim=-1).max().item():.2f} px, "
+          f"mean |d| {flow_mean:.2e} px (tol {AUX_FLOW_MEAN}), share > 0.1 px {flow_far:.4f} (tol {AUX_FLOW_FAR}), "
+          f"max |d| {fd.max().item():.3e}; HED max |d| {edge_err:.2e} (tol {AUX_EDGE_ATOL}); EGNet mask max |d| "
+          f"{mask_err:.2e} (tol {AUX_MASK_ATOL}), background share {(m1 > 0.5).float().mean().item():.3f}")
+    if not (flow_mean <= AUX_FLOW_MEAN and flow_far <= AUX_FLOW_FAR and edge_err <= AUX_EDGE_ATOL
+            and mask_err <= AUX_MASK_ATOL):
+        fail("aux: card and CPU disagree")
+    if not big:
+        return
+    # the pipeline's dtypes: GMFlow float32 on bf16-rounded weights, EGNet bf16
+    gm, hed, eg = (copy.deepcopy(m).to(dev) for m in mods)
+    gm, eg = gm.to(torch.bfloat16).float(), eg.to(torch.bfloat16)
+    frames, _, _ = make_inputs(seed, 8, 512)
+    x = torch.from_numpy(np.stack(frames)).to(dev).float()
+    sal_fn = make_saliency_fn(eg)
+    runs = {"GMFlow 8 pairs bidirectional (float32, bf16-rounded weights)":
+                lambda: gm(x, torch.roll(x, -1, 0)),
+            "HED 8 frames (float32, one call per frame)": lambda: [hed_detector(hed, f) for f in frames],
+            "EGNet background mask 8 frames (bf16)": lambda: sal_fn(np.stack(frames))}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(out, torch.Tensor) and not bool(torch.isfinite(out).all()):
+            fail(f"aux {name}: non-finite output")
+        print(f"aux 512x512 {name}: {ms:.1f} ms, peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+
+E2E_FRAMES, E2E_MININTERV, E2E_MAXINTERV = 41, 3, 5
+
+
+def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512):
+    """Keyframes (selection, 2 batches with the record carried, GMFlow, HED,
+    EGNet background smoothing) then propagation of the whole clip."""
+    from fresco_torch.attention.flash import flash_attention
+    from fresco_torch.ops.gram_kernel import sign_gram_apply
+    from fresco_torch.pipeline.runner import FrescoPipeline, build_models
+    from fresco_torch.propagate.gather import gather_rows
+    from fresco_torch.propagate.patch_eval import patch_eval
+    from fresco_torch.propagate.video_blend import blend_video_frames
+
+    n = E2E_FRAMES
+    cfg = music_config(resolution=res, mininterv=E2E_MININTERV, maxinterv=E2E_MAXINTERV,
+                       **(dict(dtype="float32", gram_dtype="float32", num_inference_steps=6, num_warmup_steps=1,
+                               end_opt_step=4, opt_iters=1, bg_smoothing_steps=(3, 4)) if tiny else {}))
+    t0 = time.perf_counter()
+    bundle = build_models(cfg, tiny=tiny, seed=seed, device=dev, random_aux_weights=True)
+    pipe = FrescoPipeline(cfg, bundle)
+    pipe.sync_phases = True
+    frames, _, _ = make_inputs(seed, n, res)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    sync()
+    print(f"e2e: built models (GMFlow, HED, EGNet included) in {time.perf_counter() - t0:.1f} s; "
+          f"detector {getattr(bundle.detector, 'func', bundle.detector).__name__}, saliency "
+          f"{'on' if bundle.saliency_fn else 'off'}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for k in (flash_attention, sign_gram_apply, gather_rows, patch_eval):
+        k.launches = 0
+    t0 = time.perf_counter()
+    keys = pipe.translate_keyframes(frames, verbose=True)
+    sync()
+    t_keys = time.perf_counter() - t0
+    key_ind = sorted(keys)
+    bgr = lambda img: np.ascontiguousarray(img[..., ::-1])  # noqa: E731
+    tm: dict = {}
+    t1 = time.perf_counter()
+    out = blend_video_frames({i: bgr(f) for i, f in enumerate(frames)}, {k: bgr(keys[k]) for k in key_ind}, key_ind,
+                             flow_fn=pipe.gmflow_flow_fn(), device=dev, timers_out=tm)
+    sync()
+    t_prop = time.perf_counter() - t1
+    launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches,
+                "row_gather": gather_rows.launches, "patch_eval": patch_eval.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+    ph = pipe.phases.times
+    print(f"e2e: {n} frames {res}x{res}, {len(key_ind)} keyframes {key_ind}, keyframe stage {t_keys:.2f} s, "
+          f"propagation {t_prop:.2f} s, wall {t_keys + t_prop:.2f} s, peak device memory "
+          f"{peak_gb:.2f} GiB, launches {launches}")
+    names = [("gmflow/interframe_prep", "interframe_prep"), ("saliency", "saliency"),
+             ("control_detector", "control_detector"), ("intraframe_prep", "intraframe_prep"),
+             ("attn_params", "attn_params"), ("encode_prompts", "encode_prompts"), ("denoise_loop", "denoise_loop"),
+             ("vae_decode", "vae_decode"), ("upload_frames", "upload_frames")]
+    print("e2e keyframe phases (s, synchronized): " + ", ".join(f"{a} {ph.get(b, 0.0):.3f}" for a, b in names))
+    print("e2e propagation phases (s, host wall, overlapping): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(tm.items(), key=lambda kv: -kv[1])))
+    if not 9 <= len(key_ind) <= 12:
+        fail(f"e2e: {len(key_ind)} keyframes, expected 9-12")
+    if any(keys[k].shape != (res, res, 3) or keys[k].dtype != np.uint8 for k in key_ind):
+        fail("e2e: keyframes of the wrong shape")
+    if sorted(out) != list(range(n)) or any(out[i].shape != (res, res, 3) or out[i].dtype != np.uint8 for i in out):
+        fail("e2e: wrong frames out of propagation")
+    if not all(np.array_equal(out[k], bgr(keys[k])) for k in key_ind):
+        fail("e2e: a keyframe did not pass through propagation unchanged")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"e2e did not launch every main-path kernel: {launches}")
+    return launches
 
 
 def main() -> None:
@@ -704,6 +915,9 @@ def main() -> None:
     pe_rows, pe_err = phase_patch_eval(args.seed, dev)
     phase_small_propagate(args.seed, dev)
     launches.update(phase_propagate(args.seed, dev))
+    gemm_rows, gemm_err, launches["bmm"] = phase_gemm(gen, dev)
+    phase_aux(args.seed, dev)
+    phase_e2e(args.seed, dev)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -718,6 +932,8 @@ def main() -> None:
             gather_rows_["vote f32 W=75"]),
         row("patch_eval", "fresco_torch/csrc/patch_eval.cu", "scripts/bench_fused_eval.py:94", pe_err,
             pe_rows["seeded 15 cand"]),
+        row("bmm", "fresco_torch/csrc/bmm.cu", "scripts/bench_gemm.py:60", gemm_err,
+            gemm_rows["flat fij,fjd [8,4096,4096]x[8,4096,1280]"]),
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,7 +83,7 @@ def flash_attention(q, k, v, key_mask=None, *, scale=None):
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(rc, "flash_attn_fwd")
-    flash_attention.launches += 1
+    kernels.count_launch(flash_attention)
     return out
 
 

@@ -18,11 +18,19 @@ runs.
 
 Inter-batch propagation (pipe_FRESCO.py:175-179): ``record_in`` holds
 anchor latents per step from the previous batch, ``record_out`` this
-batch's.  Background smoothing (saliency) is not ported yet.
+batch's.
+
+Background smoothing (FRESCO's third mechanism, given a saliency
+background mask): the optimized decoder features go through
+``warp_and_fuse`` after the feature optimization, and at
+``bg_smoothing_steps`` the predicted x0 is VAE-decoded, fused in image
+space (chunk 1) and re-encoded, in frame groups of gcd(F, bg_vae_chunk)
+(pipe_FRESCO.py:222-228).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -32,6 +40,7 @@ from fresco_torch.attention.fresco_attention import FrescoAttnParams
 from fresco_torch.diffusion.guidance import GuidanceConfig, optimize_feature
 from fresco_torch.diffusion.scheduler import DDPMScheduler
 from fresco_torch.models.controlnet import embed_cond
+from fresco_torch.ops.blend import warp_and_fuse
 
 
 @dataclasses.dataclass
@@ -43,6 +52,7 @@ class FrescoState:
     bwd_flow: torch.Tensor | None = None
     fwd_occ: torch.Tensor | None = None   # [F, H, W]
     bwd_occ: torch.Tensor | None = None
+    saliency: torch.Tensor | None = None  # [F, h, w, 1] background mask
     correlations: dict | None = None      # {stage: [2F, hw, C]} factored
 
 
@@ -55,11 +65,14 @@ class SamplerConfig:
     repeat_noise: bool = True        # initial SDEdit noise tiled over frames
     num_intraattn_steps: int = 1
     step_interattn_end: int = 350
+    bg_smoothing_steps: tuple[int, ...] = (16, 17)
     end_opt_step: int = 15
     opt_layers: tuple[int, ...] = (0, 1, 2, 3)
     guidance: GuidanceConfig = GuidanceConfig()
     propagation_mode: bool = False
     do_opt: bool = True
+    bg_smooth_latents: bool = True  # decoded-image smoothing at bg_smoothing_steps
+    bg_vae_chunk: int = 8           # frames per VAE round-trip group
 
 
 class FrescoSampler:
@@ -68,13 +81,14 @@ class FrescoSampler:
 
     def step_gates(self, cfg: SamplerConfig) -> list[dict]:
         """Per-step gates (pipe_FRESCO.py:171-174,222-228): one dict per
-        step with t, use_intra, use_inter, do_opt, step_index."""
+        step with t, use_intra, use_inter, do_opt, do_bg, step_index."""
         warmup = max(cfg.num_warmup_steps, 0)
         ts = self.scheduler.timesteps_np[warmup:]
         return [
             dict(t=int(t), use_intra=i < cfg.num_intraattn_steps,
                  use_inter=bool(t >= cfg.step_interattn_end),
                  do_opt=(i + warmup < cfg.end_opt_step) and cfg.do_opt,
+                 do_bg=(i + warmup) in cfg.bg_smoothing_steps,
                  step_index=i + warmup)
             for i, t in enumerate(ts)
         ]
@@ -92,17 +106,32 @@ class FrescoSampler:
             step_noise=torch.randn((n_steps, *shape), generator=gen, device=dev),
         )
 
+    def _smooth_x0(self, x0, fresco: FrescoState, cfg: SamplerConfig, noise, lat_t):
+        """Decoded-image background smoothing of the predicted x0: VAE
+        decode, ``warp_and_fuse`` (chunk 1), VAE encode with ``noise[g]``
+        as group g's posterior noise, in groups of gcd(F, bg_vae_chunk)."""
+        f = x0.shape[0]
+        g = math.gcd(f, cfg.bg_vae_chunk)
+        with record_function("fresco::bg_smoothing"):
+            img = torch.cat([self.vae.decode(x0[i : i + g]) for i in range(0, f, g)])
+            img = warp_and_fuse(img.to(lat_t), fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
+                                fresco.bwd_occ, fresco.saliency, chunk=1)
+            return torch.cat([self.vae.encode(img[i : i + g], noise[i // g]).to(lat_t)
+                              for i in range(0, f, g)])
+
     @torch.no_grad()
     def sample(self, frames, prompt_embeds, edges, cond_scale, fresco: FrescoState,
                record_in, cfg: SamplerConfig, *, init_noise=None, enc_noise=None,
-               step_noise=None, generator: torch.Generator | None = None):
+               step_noise=None, bg_enc_noise=None, generator: torch.Generator | None = None):
         """Translate one keyframe batch.
 
         frames [F,H,W,3] in [-1,1]; prompt_embeds [2F,77,C] (uncond
         first); edges [F,H,W,3] in [0,1] or None; cond_scale: per-step
         ControlNet scales [T]; record_in [T',2,h,w,4] or None.  Noise:
-        init_noise [F,h,w,4], enc_noise [F,h,w,4], step_noise [T',F,h,w,4].
-        Returns (latents [F,h,w,4], record_out [T',2,h,w,4])."""
+        init_noise [F,h,w,4], enc_noise [F,h,w,4], step_noise [T',F,h,w,4],
+        bg_enc_noise {step index: [group noise [g,h,w,4], ...]} for the
+        background-smoothing re-encode (drawn from ``generator`` where
+        missing).  Returns (latents [F,h,w,4], record_out [T',2,h,w,4])."""
         f = frames.shape[0]
         s = self.scheduler
         lat_t = torch.promote_types(frames.dtype, torch.float32)
@@ -150,8 +179,13 @@ class FrescoSampler:
                         return x
                     corr = fresco.correlations.get(stage) if fresco.correlations is not None else None
                     with record_function("fresco::optimize_feature"):
-                        return optimize_feature(x, fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
-                                                fresco.bwd_occ, corr, cfg.guidance, corr_is_dense=False)
+                        y = optimize_feature(x, fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
+                                             fresco.bwd_occ, corr, cfg.guidance, corr_is_dense=False)
+                    if fresco.saliency is not None and fresco.fwd_flow is not None:
+                        with record_function("fresco::bg_smoothing"):
+                            y = warp_and_fuse(y, fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
+                                              fresco.bwd_occ, fresco.saliency, chunk=cfg.guidance.chunk)
+                    return y
             with record_function("fresco::unet"):
                 eps = self.unet(lmi, t, prompt_embeds, controlnet_residuals=ctrl, fresco=attn,
                                 guidance_fn=guidance_fn).to(lat_t)
@@ -159,6 +193,15 @@ class FrescoSampler:
             eps = eps_u + cfg.guidance_scale * (eps_c - eps_u)
 
             pred_x0 = s.predict_x0(latents, eps, t)
+            if gate["do_bg"] and cfg.bg_smooth_latents and fresco.saliency is not None:
+                noise = (bg_enc_noise or {}).get(gate["step_index"])
+                if noise is None:
+                    if generator is None:
+                        raise ValueError("sample: pass bg_enc_noise or a generator")
+                    g = math.gcd(f, cfg.bg_vae_chunk)
+                    noise = [torch.randn((g, *latents.shape[1:]), generator=generator, device=latents.device)
+                             for _ in range(f // g)]
+                pred_x0 = self._smooth_x0(pred_x0, fresco, cfg, noise, lat_t)
             latents = s.step_from_x0(latents, pred_x0, t, step_noise[i])
         return latents, torch.stack(rec_list)
 

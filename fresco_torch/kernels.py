@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -42,6 +43,8 @@ _SIGNATURES = {
     # src, tgt, weights, omega, nnf_in, e_in, nnf_out, e_out, deltas, tiles, mask,
     # sh, sw, th, tw, cp, patch, n_shift, shift values (host), n_rand, n_tiles, stream
     "fresco_patch_eval": [_P] * 11 + [_I] * 7 + [_P, _I, _I, _P],
+    # a, x, out, B, M, N, K, a_period, stream
+    "fresco_bmm": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 
@@ -134,3 +137,14 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  A wrapper may be called from any
+    thread (propagation synthesizes on worker threads), so the count is
+    taken under a lock and no launch is lost."""
+    with _count_lock:
+        wrapper.launches += 1

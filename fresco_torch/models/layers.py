@@ -25,15 +25,15 @@ class Conv2d(nn.Module):
     """NHWC convolution, symmetric padding (Flax ``Conv2d`` wrapper)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 1, bias: bool = True):
+                 padding: int = 1, bias: bool = True, dilation: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2).to(self.weight.dtype), self.weight, self.bias,
-                     self.stride, self.padding)
+                     self.stride, self.padding, self.dilation)
         return y.permute(0, 2, 3, 1)
 
 
@@ -153,4 +153,6 @@ def init_flax_default_(module: nn.Module, gen: torch.Generator) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight.shape[1]), generator=gen)
+        if hasattr(m, "flax_init"):
+            m.flax_init()
     return module

@@ -82,7 +82,7 @@ def sign_gram_apply(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
     kernels.check(lib.fresco_sign_gram_apply(
         s.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hw, c, lds, int(v.dtype == torch.float32),
         stream), "sign_gram_apply")
-    sign_gram_apply.launches += 1
+    kernels.count_launch(sign_gram_apply)
     return out
 
 

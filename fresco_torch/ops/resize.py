@@ -43,3 +43,9 @@ def max_pool2d(x: torch.Tensor, kernel: int, stride: int | None = None) -> torch
     """Max-pool NHWC ``x`` (VALID padding)."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride or kernel)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: int | None = None) -> torch.Tensor:
+    """Average-pool NHWC ``x`` (VALID padding)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), kernel, stride or kernel)
+    return y.permute(0, 2, 3, 1)

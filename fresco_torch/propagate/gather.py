@@ -37,7 +37,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     kernels.check(kernels.load().fresco_row_gather(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, idx.shape[0], w * table.element_size(),
         torch.cuda.current_stream(table.device).cuda_stream), "row_gather")
-    gather_rows.launches += 1
+    kernels.count_launch(gather_rows)
     return out
 
 

@@ -242,7 +242,7 @@ def patch_eval(src, tgt, weights, omega, nnf, e=None, shifts=(), deltas=None, ac
         0 if deltas_c is None else deltas_c.shape[0],
         0 if tiles is None else tiles.shape[0],
         torch.cuda.current_stream(dev).cuda_stream), "patch_eval")
-    patch_eval.launches += 1
+    kernels.count_launch(patch_eval)
     return nnf_out, e_out
 
 

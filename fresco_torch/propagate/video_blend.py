@@ -9,13 +9,13 @@ histogram blend -> optional Poisson fusion).
 ``blend_video_frames`` is the whole stage in memory: uint8 BGR frames and
 keys in, blended uint8 BGR frames out, on the card unless the caller
 passes a CPU device.  ``blend_video`` wraps it with PNG files read and
-written through Pillow (the port uses no OpenCV).  Not ported here: the
-multi-device interval wave (``parallel.py``), writing an mp4, and a
-default flow source (GMFlow is ROADMAP Slice 5, Farneback is OpenCV's):
-``flow_fn`` is required.
+written through Pillow.  Not ported here: the multi-device interval wave
+(``parallel.py``) and writing an mp4.  ``flow_fn`` is required: the
+caller supplies the flows (the CLI passes Farneback through OpenCV, or
+the model bundle's GMFlow: ``FrescoPipeline.gmflow_flow_fn``).
 
 Run: ``python -m fresco_torch.propagate.video_blend <dir> --key_ind 0 10``
-(needs a ``flow_fn``, so as a command it only states what is missing).
+(Farneback flows, so it needs OpenCV).
 """
 from __future__ import annotations
 
@@ -204,8 +204,9 @@ def blend_video_frames(
     the keyframes pass through unchanged.  ``timers_out`` receives the
     per-phase wall seconds and ``wall_total``."""
     if flow_fn is None:
-        raise NotImplementedError(
-            "flow_fn is required: GMFlow is not ported (ROADMAP Slice 5) and Farneback is OpenCV's")
+        raise ValueError(
+            "blend_video_frames: flow_fn is required, e.g. the model bundle's GMFlow "
+            "(FrescoPipeline.gmflow_flow_fn()) or Farneback (utils.classic_flow.pairwise_flow_fn())")
     dev = resolve_device(device)
     if tmp_dir is not None:
         os.makedirs(tmp_dir, exist_ok=True)
@@ -378,7 +379,9 @@ def main(argv=None):
         pm_kw["trim_seeded_levels"] = a.trim
     if a.stop_threshold is not None:
         pm_kw["stop_threshold"] = a.stop_threshold
-    blend_video(a.name, a.key_ind, a.key, poisson=a.ps, reuse_synthesis=a.ne,
+    from fresco_torch.utils.classic_flow import pairwise_flow_fn
+
+    blend_video(a.name, a.key_ind, a.key, flow_fn=pairwise_flow_fn(), poisson=a.ps, reuse_synthesis=a.ne,
                 patch_cfg=PatchMatchConfig(**pm_kw), device=a.device)
 
 

@@ -14,7 +14,10 @@ unit-variance inputs — the kernel rounds P to bf16 and writes bf16, the
 plain version is float32 math on the same bf16 inputs; a skipped or
 doubled key tile moves either far more.  Sign-gram (bf16 and float32):
 C is built with a margin of ~1 around every sign, so both compute the
-same S and the f32 outputs agree to 1e-5 relative Frobenius.
+same S and the f32 outputs agree to 1e-5 relative Frobenius.  Batched
+GEMM: float32 sums of exact bf16 products in two orders, 1e-5 relative
+Frobenius, at ragged shapes (M, N, K that no tile divides, K and N not
+multiples of 8) and in the guidance layout.
 """
 import pytest
 import torch
@@ -143,3 +146,22 @@ def test_patch_eval_kernel_matches_plain(cuda_device, c, patch, mode):
     assert_near_tie_agreement(args, out, ref, patch)
     if mode in ("full_sweep", "compact"):  # frozen pixels keep their inputs
         assert torch.equal(out[0][~mask], args[4][~mask]) and torch.equal(out[1][~mask], e0[~mask])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xshape,m", [((3, 264, 136), 200), ((2, 37, 29), 53), ((1, 512, 640), 256),
+                                      ((2, 3, 96, 40), 70)])
+def test_bmm_kernel_matches_plain(cuda_device, xshape, m):
+    from fresco_torch.scripts.bench_gemm import bmm, bmm_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    b, k = xshape[-3], xshape[-2]
+    a = torch.randn(b, m, k, device=cuda_device, generator=g).to(torch.bfloat16)
+    x = torch.randn(*xshape, device=cuda_device, generator=g).to(torch.bfloat16)
+    before = bmm.launches
+    out = bmm(a, x)
+    torch.cuda.synchronize()
+    assert bmm.launches == before + 1
+    ref = bmm_plain(a, x)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert ((out - ref).norm() / ref.norm()).item() < 1e-5

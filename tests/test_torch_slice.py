@@ -14,6 +14,13 @@ absolute after 6 denoise steps of float32 math in two summation orders
 amplify rounding differences (the JAX package saw the same between its
 own sharded and single runs), so the full slice is held to 2e-2 relative
 Frobenius error (measured: 6e-3).
+
+Two batches through the port's in-memory ``translate_keyframes`` (8
+keyframes, batch size 5: 5 frames, then 2 anchors + 3), with the tiny
+GMFlow as the flow source and the latent record carried, against two
+``_translate_batch`` calls of the JAX package: the uint8 keyframes agree
+to 1 level (rounding of the same float32 image; measured: 1) without the
+feature optimization.
 """
 import os
 import subprocess
@@ -69,16 +76,16 @@ def _edges(img):
     return np.clip(e * 8, 0, 255).astype(np.uint8)
 
 
-def _jax_noise(seed: int, n_steps: int, warmup: int):
+def _jax_noise(seed: int, n_steps: int, warmup: int, f: int = F):
     rng = jax.random.key(seed)
-    lshape = (F, RES // 8, RES // 8, 4)
+    lshape = (f, RES // 8, RES // 8, 4)
     rng_noise, rng_enc = jax.random.split(rng)
     rng_init, rng_enc2, rng_steps = jax.random.split(rng, 3)
     arr = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
     return dict(
         intra_noise=arr(jax.random.normal(rng_noise, lshape, jnp.float32)),
         intra_enc_noise=arr(jax.random.normal(rng_enc, lshape, jnp.float32)),
-        init_noise=arr(jnp.tile(jax.random.normal(rng_init, (1, *lshape[1:]), jnp.float32), (F, 1, 1, 1))),
+        init_noise=arr(jnp.tile(jax.random.normal(rng_init, (1, *lshape[1:]), jnp.float32), (f, 1, 1, 1))),
         enc_noise=arr(jax.random.normal(rng_enc2, lshape, jnp.float32)),
         step_noise=torch.stack([
             arr(jax.random.normal(jax.random.fold_in(rng_steps, idx), lshape, jnp.float32))
@@ -134,6 +141,73 @@ def test_slice_full(weights):
     assert np.isfinite(tlat).all()
     assert np.linalg.norm(tlat - jlat) / np.linalg.norm(jlat) < 2e-2
     assert np.linalg.norm(timg - jimg) / np.linalg.norm(jimg) < 2e-2
+
+
+def _tiny_gmflow(seed: int = 11):
+    from fresco_tpu.models.gmflow import model as jg
+
+    jm = jg.GMFlow(jg.GMFlowConfig.tiny())
+    img = jnp.zeros((1, RES, RES, 3))
+    params = jax.jit(jm.init)(jax.random.key(seed), img, img)
+    rng = np.random.default_rng(seed)
+    return jm, jax.tree.map(lambda x: (np.asarray(x) + rng.normal(0, 0.02, x.shape)).astype(np.float32), params)
+
+
+def test_two_batches_with_record(weights):
+    """Batch 2 holds the first keyframe and batch 1's last as anchors and
+    takes batch 1's latent record; the flows come from the tiny GMFlow."""
+    from fresco_torch.models.convert import from_jax_params
+    from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
+    from fresco_torch.core.config import keyframe_sublists
+
+    jm, params = weights
+    jgm, gparams = _tiny_gmflow()
+    params = dict(params, gmflow=gparams)
+    n, bs = 8, 5
+    jcfg, tcfg = _config(use_fresco_opt=False, batch_size=bs, aux_dtype="float32")
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:RES, 0:RES]
+    frames = []
+    for i in range(n):
+        base = 127 + 70 * np.sin((xx - 1.5 * i) / 6.0) * np.cos((yy + i) / 8.0)
+        img = np.stack([base, np.roll(base, 5, 0), 255 - base], -1) + rng.normal(0, 3, (RES, RES, 3))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    keys = list(range(n))
+    subs = keyframe_sublists(keys, bs)
+    assert [len(s_) for s_ in subs] == [5, 3]
+    prompt = jcfg.prompt + ", best quality, extremely detailed, "
+    neg = ("longbody, lowres, bad anatomy, bad hands, missing finger, extra digit, fewer digits, "
+           "cropped, worst quality, low quality")
+
+    jbundle = jrunner.ModelBundle(
+        jm["unet"], jm["vae"], jm["controlnet"], jm["text"], jgm,
+        JSched(num_inference_steps=jcfg.num_inference_steps), params, HashTokenizer(1000), _edges, None)
+    jpipe = jrunner.FrescoPipeline(jcfg, jbundle)
+    jrng = jax.random.key(jcfg.seed)
+    ref, record = {}, None
+    for bi, sub in enumerate(subs):
+        imgs = [frames[i] for i in sub]
+        if bi:
+            imgs = [frames[subs[0][0]], frames[subs[bi - 1][-1]]] + imgs
+        lat, record = jpipe._translate_batch(imgs, [prompt] * len(imgs), [neg] * len(imgs), record, bi > 0, jrng)
+        out = unit_range_to_uint8(jpipe._decode_jit(params, lat))
+        for j, k in enumerate(sub):
+            ref[k] = out[j + (2 if bi else 0)]
+
+    tm = torch_tiny_models(params)
+    tgm = GMFlow(GMFlowConfig.tiny())
+    from_jax_params(gparams, tgm)
+    tbundle = trunner.ModelBundle(
+        tm["unet"], tm["vae"], tm["controlnet"], tm["text"],
+        trunner.DDPMScheduler(num_inference_steps=tcfg.num_inference_steps), HashTokenizer(1000),
+        _edges, torch.device("cpu"), gmflow=tgm.eval())
+    tpipe = trunner.FrescoPipeline(tcfg, tbundle)
+    noise = [_jax_noise(tcfg.seed, tcfg.num_inference_steps, tcfg.num_warmup_steps, f=5) for _ in subs]
+    out = tpipe.translate_keyframes(frames, keys, noise=noise)
+    assert sorted(out) == keys
+    for k in keys:
+        assert out[k].shape == (RES, RES, 3) and out[k].dtype == np.uint8
+        assert np.abs(out[k].astype(int) - ref[k]).max() <= 1, k
 
 
 def test_port_imports_no_jax():
