@@ -12,7 +12,13 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. flash   : the flash-attention kernel against plain float32 attention
                on the same bf16 inputs, at the shapes of the main path
                (UNet/ControlNet self-attention d = 40/80/160, cross-frame
-               attention over compacted ragged keys, VAE mid-block d = 512);
+               attention over compacted ragged keys, VAE mid-block d = 512),
+               each timed beside SDPA (and, at d = 40 and 512, beside each
+               SDPA backend forced in turn); then the cases a tiled,
+               pipelined kernel can get wrong (lengths no tile divides, the
+               first / last / two adjacent key tiles masked, fewer keys than
+               a tile or than the ring is deep, d = 8..256, more key tiles
+               than the kernel lists at a time) and the empty batch row;
   3. gram    : the sign-gram kernels against the chunked plain version at
                the four decoder-stage shapes and a ragged hw = 1280 in
                bf16 (the main path's gram dtype), and at two of them in
@@ -57,7 +63,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                must pass through propagation unchanged.  Phases are
                synchronized, so the breakdown is device time.
 Every kernel line gives its time, its plain version's, its bound (the
-larger of bytes over 3.35 TB/s and operations over the data-sheet peak)
+larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
+for flash also one exp2 per logit over the special-function units' rate)
 and the library call's time where one computes the same function.  The
 line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -141,12 +148,103 @@ def plain_attention_chunked(q, k, v, mask, q_chunk: int):
     return out
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi gives it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi --query-gpu=clocks.max.sm failed (rc {smi.returncode})")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def flash_bound(b, h, sq, n_valid, d, n_io_elems, clock_hz):
+    """(least ms, "bytes" | "operations", detail) for one attention call:
+    the largest of the bytes over the memory rate, the two products over
+    the bf16 tensor peak, and one exp2 per logit over the special-function
+    units' rate (132 SMs x 16 a clock x the maximum SM clock)."""
+    logits = b * h * sq * n_valid
+    t = {"bytes": 2 * n_io_elems / HBM_BYTES_PER_S * 1e3,
+         "products": 4 * logits * d / BF16_TENSOR_FLOPS * 1e3,
+         "exp2": logits / (132 * 16 * clock_hz) * 1e3}
+    detail = max(t, key=t.get)
+    return t[detail], ("bytes" if detail == "bytes" else "operations"), detail, t
+
+
+def sdpa_backends(q, k, v):
+    """Milliseconds of scaled_dot_product_attention with each backend forced
+    in turn (None where it refuses these inputs), and of the default choice."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"default": cuda_ms(lambda: sdpa(q, k, v))}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel(backend):
+                out[name] = cuda_ms(lambda: sdpa(q, k, v), iters=3 if name == "MATH" else 10)
+        except RuntimeError:
+            out[name] = None
+    return out
+
+
+def flash_edge_cases(dev):
+    """(name, (B, H, Sq, Sk, d), mask or None): what a tiled, pipelined
+    kernel can get wrong.  Key tiles are 64 keys (32 at d = 512)."""
+    def mask(b, sk, *holes, keep_to=None):
+        m = torch.ones(b, sk, dtype=torch.bool, device=dev)
+        for lo, hi in holes:
+            m[:, lo:hi] = False
+        if keep_to is not None:
+            m[:, keep_to:] = False
+        return m
+
+    cases = []
+    for d in (40, 512):
+        bh = (2, 8) if d == 40 else (1, 2)
+        cases += [
+            (f"ragged d={d}", (*bh, 4000, 4030, d) if d == 40 else (1, 1, 4000, 4030, d), None),
+            (f"first tile masked d={d}", (*bh, 1000, 1000, d), mask(bh[0], 1000, (0, 64), (100, 117))),
+            (f"last tiles masked d={d}", (*bh, 1000, 1000, d), mask(bh[0], 1000, keep_to=600)),
+            (f"two masked tiles in a row d={d}", (*bh, 1000, 1000, d), mask(bh[0], 1000, (256, 384), (700, 701))),
+            (f"Sk under one tile d={d}", (*bh, 300, 24, d), None),
+            (f"Sk under the ring's depth d={d}", (*bh, 300, 100, d), mask(bh[0], 100, (3, 9))),
+        ]
+    m2 = mask(2, 777, (64, 192))
+    m2[1] = mask(1, 777, (0, 64), keep_to=500)[0]   # a different mask per batch row
+    cases += [("d=256 masked", (2, 2, 500, 777, 256), m2),
+              ("d=256 ragged", (1, 2, 1100, 1030, 256), None),
+              ("d=8", (2, 4, 500, 333, 8), mask(2, 333, (0, 130))),
+              ("d=128", (1, 4, 700, 900, 128), mask(1, 900, (64, 128))),
+              ("d=64", (1, 4, 700, 900, 64), None),
+              ("d=32 long keys", (1, 1, 200, 70000, 32), mask(1, 70000, (1000, 40000)))]
+    return cases
+
+
 def phase_flash(gen, dev):
     from fresco_torch.attention.flash import flash_attention
 
     def heads(b, s, h, d):  # [B,S,H,D] memory, [B,H,S,D] view (as the model's head split)
         return torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
 
+    def check(name, q, k, v, mask, qc):
+        out = flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = plain_attention_chunked(q, k, v, mask, qc)
+        diff = out.float() - ref
+        err, rel = diff.abs().max().item(), (diff.norm() / ref.norm()).item()
+        if not (err <= FLASH_ATOL and rel <= FLASH_REL_FRO):
+            fail(f"flash {name}: max|d| {err}, rel fro {rel}")
+        return err, rel, ref.abs().max().item()
+
+    def timed(fn):  # calls under half a millisecond read up to 2x apart over 10 launches
+        ms = cuda_ms(fn)
+        return cuda_ms(fn, iters=200) if ms < 0.5 else ms
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    clock_hz = sm_clock_hz()
+    print(f"flash bounds: exp2 rate 132 SMs x 16 a clock x {clock_hz / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
     # cross-frame mask: compacted keys valid-first (1.5 hw of 6144 valid),
     # one fully masked 64-key tile inside the valid run, ragged tail
     sk = 6144
@@ -163,43 +261,54 @@ def phase_flash(gen, dev):
     rows, max_err = {}, 0.0
     for name, (b, h, sq, skk, d), mask, qc in cases:
         q, k, v = heads(b, sq, h, d), heads(b, skk, h, d), heads(b, skk, h, d)
-        out = flash_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        ref = plain_attention_chunked(q, k, v, mask, qc)
-        diff = out.float() - ref
-        err = diff.abs().max().item()
-        rel = (diff.norm() / ref.norm()).item()
-        ms = cuda_ms(lambda: flash_attention(q, k, v, mask))
+        err, rel, ref_max = check(name, q, k, v, mask, qc)
+        ms = timed(lambda: flash_attention(q, k, v, mask))
         plain_ms = cuda_ms(lambda: plain_attention_chunked(q, k, v, mask, qc), iters=2)
-        # the library call computing the same function (unmasked only: SDPA
-        # gives NaN on an empty row); timed here, never called by the port
-        lib_ms = (cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
-                  if mask is None else None)
+        # the library call computing the same function (the masked case has
+        # no empty row, so SDPA gives no NaN); timed here, never called by
+        # the port
+        attn_mask = None if mask is None else mask[:, None, None, :]
+        lib_ms = timed(lambda: sdpa(q, k, v, attn_mask=attn_mask))
         n_valid = skk if mask is None else int(mask.sum(1).max())
-        bnd = bound(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
-                    4 * b * h * sq * n_valid * d, BF16_TENSOR_FLOPS)
+        bnd_ms, bnd_by, bnd_detail, parts = flash_bound(
+            b, h, sq, n_valid, d, q.numel() + k.numel() + v.numel() + q.numel(), clock_hz)
         print(f"flash {name:18s} B={b} H={h} Sq={sq} Sk={skk}: max|d|={err:.3e} (tol {FLASH_ATOL}), "
-              f"max|ref|={ref.abs().max().item():.3e}, rel fro {rel:.3e} (tol {FLASH_REL_FRO}), "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
-              f"library (SDPA) {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
-        if not (err <= FLASH_ATOL and rel <= FLASH_REL_FRO):
-            fail(f"flash {name}: max|d| {err}, rel fro {rel}")
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms)
+              f"max|ref|={ref_max:.3e}, rel fro {rel:.3e} (tol {FLASH_REL_FRO}), "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd_ms:.3f} ms ({bnd_detail}; "
+              + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in parts.items()) + f"), library (SDPA) {lib_ms:.3f} ms")
+        if ms < bnd_ms:
+            fail(f"flash {name}: kernel time {ms} ms reads under its bound {bnd_ms} ms")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd_ms, bound_by=bnd_by, library_ms=lib_ms,
+                          bound_detail=bnd_detail)
         max_err = max(max_err, err)
-        del q, k, v, out, ref, diff
+        if name in ("self d=40", "vae d=512"):
+            print(f"flash SDPA backends at {name} (ms; None = refused): "
+                  + ", ".join(f"{k_} {'None' if v_ is None else f'{v_:.3f}'}" for k_, v_ in sdpa_backends(q, k, v).items()))
+        del q, k, v
+    for name, (b, h, sq, skk, d), mask in flash_edge_cases(dev):
+        q, k, v = heads(b, sq, h, d), heads(b, skk, h, d), heads(b, skk, h, d)
+        if skk < 128:
+            # a mean of few unit-variance values is large: at |out| > 2 half a
+            # bf16 step of the output alone is 3.9e-3, so keep |out| under 1
+            v = v * 0.25
+        err, rel, _ = check(name, q, k, v, mask, 1024)
+        print(f"flash case {name:34s} B={b} H={h} Sq={sq} Sk={skk}: max|d|={err:.3e} (tol {FLASH_ATOL}), "
+              f"rel fro {rel:.3e} (tol {FLASH_REL_FRO})")
+        max_err = max(max_err, err)
     # a batch row with no valid key must give exact zeros
-    q, k, v = heads(2, 300, 8, 40), heads(2, 200, 8, 40), heads(2, 200, 8, 40)
-    m = torch.ones(2, 200, dtype=torch.bool, device=dev)
-    m[1] = False
-    out = flash_attention(q, k, v, m)
-    torch.cuda.synchronize()
-    if not bool((out[1] == 0).all()):
-        fail("flash: a row with no valid key is not exact zeros")
-    err = (out[0].float() - plain_attention_chunked(q[:1], k[:1], v[:1], m[:1], 300)[0]).abs().max().item()
-    print(f"flash empty row: exact zeros, valid row max|d|={err:.3e} (tol {FLASH_ATOL})")
-    if not err <= FLASH_ATOL:
-        fail(f"flash empty-row case: valid row max|d| {err}")
-    max_err = max(max_err, err)
+    for d in (40, 512):
+        q, k, v = heads(2, 300, 8, d), heads(2, 200, 8, d), heads(2, 200, 8, d)
+        m = torch.ones(2, 200, dtype=torch.bool, device=dev)
+        m[1] = False
+        out = flash_attention(q, k, v, m)
+        torch.cuda.synchronize()
+        if not bool((out[1] == 0).all()):
+            fail(f"flash d={d}: a row with no valid key is not exact zeros")
+        err = (out[0].float() - plain_attention_chunked(q[:1], k[:1], v[:1], m[:1], 300)[0]).abs().max().item()
+        print(f"flash empty row d={d}: exact zeros, valid row max|d|={err:.3e} (tol {FLASH_ATOL})")
+        if not err <= FLASH_ATOL:
+            fail(f"flash empty-row case d={d}: valid row max|d| {err}")
+        max_err = max(max_err, err)
     return rows, max_err
 
 

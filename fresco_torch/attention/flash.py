@@ -11,6 +11,13 @@ unit-stride head dim, so the [B, S, H, D] views that head splitting
 gives need no copy.  The output is [B, H, Sq, D] as a view of a
 [B, Sq, H, D] buffer (head merging is then free).
 
+The kernel is one pass of online softmax over a cp.async ring of K/V
+tiles, with wgmma products at head dims up to 160 and an mma.sync split
+over warps at 256 and 512 (its source note gives the design per head
+dim); it walks only the key tiles that hold a valid key, so fully masked
+tiles cost nothing, and needs no scratch from the wrapper.  The softmax
+scale must be positive.
+
 ``flash_attention`` runs the kernel for CUDA tensors (bf16 only; it
 raises otherwise) and ``naive_attention`` for CPU tensors.  Forward only:
 the pipeline never differentiates through attention.
@@ -51,6 +58,8 @@ def flash_attention(q, k, v, key_mask=None, *, scale=None):
     sk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if key_mask is not None and (key_mask.shape != (b, sk) or key_mask.dtype != torch.bool):

@@ -40,4 +40,62 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return pack_raw(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
 }
 
+// the same in one cvt.rn.bf16x2.f32
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes global -> shared without passing through registers; `in` false
+// writes 16 zero bytes instead (the source address is then not read, but
+// must still be a valid pointer).  L1 true keeps the line in L1 too
+// (cp.async.ca), for data that other blocks of the SM read as well.
+template <bool L1>
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = in ? 16 : 0;
+  if constexpr (L1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory.  Lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i; lane 4g+t receives, in r[i],
+// elements (g, 2t..2t+1) of matrix i, or with .trans elements
+// (2t..2t+1, g): the pair along the rows that the mma's "col" B operand
+// wants from a matrix stored [k][n].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// 2^x on the special-function unit, one instruction; 2^-inf = +0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 }  // namespace fresco

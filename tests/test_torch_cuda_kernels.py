@@ -33,22 +33,71 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _flash_mask(kind, sk, device, g):
+    """[2, sk] key masks; batch row 1 has no valid key unless ``kind`` is
+    "none" (no mask at all)."""
+    if kind == "none":
+        return None
+    mask = torch.rand(2, sk, device=device, generator=g) > 0.5
+    if kind == "random":
+        mask[0, :64] = False          # a fully masked key tile
+    elif kind == "first":
+        mask[0] = True
+        mask[0, :64] = False          # the first tile, and only it
+    elif kind == "last":
+        mask[0, sk // 2:] = False     # every tile of the second half
+    elif kind == "two":
+        mask[0] = True
+        mask[0, 64:192] = False       # two masked tiles in a row
+    mask[1] = False                   # a batch row with no valid key
+    return mask
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,sq,sk,d", [(8, 300, 200, 40), (8, 256, 256, 80), (8, 130, 190, 160),
-                                       (1, 256, 256, 512)])
-def test_flash_kernel_matches_plain(cuda_device, h, sq, sk, d):
+@pytest.mark.parametrize("h,sq,sk,d,mask_kind,layout", [
+    pytest.param(8, 300, 200, 40, "random", "bhsd", id="8-300-200-40"),
+    pytest.param(8, 256, 256, 80, "random", "bhsd", id="8-256-256-80"),
+    pytest.param(8, 130, 190, 160, "random", "bhsd", id="8-130-190-160"),
+    pytest.param(1, 256, 256, 512, "random", "bhsd", id="1-256-256-512"),
+    # lengths no tile divides, at the one-warp-per-slab and the split widths
+    pytest.param(8, 1000, 1030, 40, "none", "bhsd", id="ragged-40"),
+    pytest.param(1, 1000, 1030, 512, "none", "bhsd", id="ragged-512"),
+    # the ring's skip path: first tile, last tiles, two tiles in a row
+    pytest.param(8, 300, 500, 40, "first", "bhsd", id="first-tile-masked-40"),
+    pytest.param(8, 300, 500, 40, "last", "bhsd", id="last-tiles-masked-40"),
+    pytest.param(8, 300, 500, 40, "two", "bhsd", id="two-tiles-masked-40"),
+    pytest.param(1, 300, 500, 512, "first", "bhsd", id="first-tile-masked-512"),
+    pytest.param(1, 300, 500, 512, "two", "bhsd", id="two-tiles-masked-512"),
+    # fewer keys than one tile, and fewer tiles than the ring is deep
+    pytest.param(8, 300, 24, 40, "last", "bhsd", id="sk-under-a-tile"),
+    pytest.param(8, 300, 100, 80, "last", "bhsd", id="sk-under-the-ring"),
+    pytest.param(2, 300, 333, 256, "random", "bhsd", id="d256"),
+    pytest.param(4, 300, 333, 8, "random", "bhsd", id="d8"),
+    # the [B, S, H, D] memory of the models' head split, not copied
+    pytest.param(8, 300, 333, 40, "random", "bshd", id="bshd-strided-40"),
+    pytest.param(2, 300, 333, 512, "two", "bshd", id="bshd-strided-512"),
+])
+def test_flash_kernel_matches_plain(cuda_device, h, sq, sk, d, mask_kind, layout):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(2, h, s, d, device=cuda_device, generator=g).to(torch.bfloat16)
-               for s in (sq, sk, sk))
-    mask = torch.rand(2, sk, device=cuda_device, generator=g) > 0.5
-    mask[0, :64] = False  # a fully masked key tile
-    mask[1] = False       # a batch row with no valid key
+    if layout == "bshd":
+        q, k, v = (torch.randn(2, s, h, d, device=cuda_device, generator=g).to(torch.bfloat16).transpose(1, 2)
+                   for s in (sq, sk, sk))
+        assert not q.is_contiguous()
+    else:
+        q, k, v = (torch.randn(2, h, s, d, device=cuda_device, generator=g).to(torch.bfloat16)
+                   for s in (sq, sk, sk))
+    if sk < 128:
+        # a mean of few unit-variance values is large: at |out| > 2 half a bf16
+        # step of the output alone is 3.9e-3, so keep |out| under 1
+        v = v * 0.25
+    mask = _flash_mask(mask_kind, sk, cuda_device, g)
     before = flash_attention.launches
     out = flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref = naive_attention(q.float(), k.float(), v.float(), mask)
-    assert (out[1] == 0).all()
+    if mask is not None:
+        assert (out[1] == 0).all()
     diff = out.float() - ref
     assert diff.abs().max().item() < 5e-3
     assert (diff.norm() / ref.norm()).item() < 1e-2

@@ -25,12 +25,23 @@ def _qkv(rng, b, h, sq, sk, d):
                  for s in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
 
 
-@pytest.mark.parametrize("d", [40, 80, 160, 512])
-def test_plain_matches_pallas_interpret(rng, d):
+@pytest.mark.parametrize("d,sk,hole", [
+    pytest.param(40, 72, None, id="40"), pytest.param(80, 72, None, id="80"),
+    pytest.param(160, 72, None, id="160"), pytest.param(512, 72, None, id="512"),
+    # what the CUDA kernel's dispatch and key-tile list tell apart: the
+    # two-column-group width, a masked first 64-key tile, two masked tiles in
+    # a row
+    pytest.param(256, 72, None, id="256"),
+    pytest.param(40, 200, (0, 64), id="40-first-tile-masked"),
+    pytest.param(40, 200, (64, 192), id="40-two-tiles-masked"),
+])
+def test_plain_matches_pallas_interpret(rng, d, sk, hole):
     """Ragged lengths, a masked key set and one fully masked batch row."""
-    b, h, sq, sk = 2, 2, 40, 72
+    b, h, sq = 2, 2, 40
     q, k, v = _qkv(rng, b, h, sq, sk, d)
     mask = rng.uniform(0, 1, (b, sk)) > 0.4
+    if hole is not None:
+        mask[:, hole[0]:hole[1]] = False
     mask[1] = False  # no valid key at all -> exact zeros
     ref = np.asarray(jflash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                             jnp.asarray(mask), interpret=True))
@@ -98,3 +109,5 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q, torch.zeros(1, 1, 5, 16), torch.zeros(1, 1, 5, 16))
     with pytest.raises(ValueError):
         flash_attention(q, q, q, torch.ones(1, 3, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, scale=-1.0)  # the kernel keeps the maximum of the unscaled logits
