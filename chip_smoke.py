@@ -32,9 +32,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                width (UNet, ControlNet, VAE, CLIP-L text) with random
                weights from a seeded torch.Generator, config_music's
                settings.  Both kernels' launch counters must move.
-  6. gather  : the row-gather kernel against index_select, bit for bit, at
-               the vote's finest table (327,680 rows of 75 float32) and
-               the TPU probe's (bf16, 384 wide);
+  6. gather  : the row-gather kernel against index_select, bit for bit:
+               a table base 4 but not 16 bytes aligned, k = 1 and one more
+               than a warp's rows, widths 1, 3, 27, 75, 76 (float32), 384
+               (bf16) and 5 (uint8), out-of-range indices (zero rows); then
+               timed at the vote's finest table (327,680 rows of 75
+               float32) and the TPU probe's (bf16, 384 wide), beside the
+               sector bound;
   7. patch_eval: the candidate-evaluation kernel against its plain version
                at 512x640, C = 15: 15 and 20 candidates, a ragged active
                set, patch 3; the NNF may differ only at near ties;
@@ -46,8 +50,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                kernels' launch counters must move;
   9. gemm    : the batched-GEMM microbench (fresco_torch.scripts.bench_gemm,
                its four rows beside torch's bf16 product), then the kernel
-               against its float32 plain version at those rows and two
-               ragged shapes;
+               against its float32 plain version at those rows and at the
+               edges a tiled wgmma ring can get wrong (M = 200, N = 700,
+               K = 40 and 264, a_period 3 with a 4-D x, two ragged shapes,
+               one with K and N not multiples of 8);
  10. aux     : GMFlow, HED and EGNet at full width, 64 px, on the card and on
                the CPU with the same float32 weights, compared; then 8
                frames at 512x512 on the card in the pipeline's dtypes
@@ -58,7 +64,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                settings: keyframe selection (intervals cut to 3..5, so 11
                keyframes in 2 batches), GMFlow flows, HED control, EGNet
                background smoothing at steps 16 and 17, the latent record
-               carried, then blend_video_frames with GMFlow flows.  All four
+               carried, then blend_video_frames on the clip's known flows
+               (GMFlow's, from random weights, are noise).  All four
                main-path kernels' launch counters must move; the keyframes
                must pass through propagation unchanged.  Phases are
                synchronized, so the breakdown is device time.
@@ -574,11 +581,66 @@ def pair_flow_fn(frames, flows, dev):
     return flow_fn
 
 
+GATHER_ROWS_A_WARP = 8  # csrc/row_gather.cu kRows
+
+
+def gather_sector_bytes(table: torch.Tensor, idx: torch.Tensor) -> int:
+    """Bytes of the 32-byte sectors that the rows table[idx] touch, from
+    this run's table address and indices."""
+    rb = table.shape[1] * table.element_size()
+    start = table.data_ptr() + idx.long() * rb
+    return int(((start + rb - 1) // 32 - start // 32 + 1).sum()) * 32
+
+
+def gather_cases(gen, dev):
+    """(name, table, idx): what a kernel that deals several rows to a warp
+    and picks its unit from the alignment can get wrong."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, k = 1000, 777
+
+    def tab(w, dtype):
+        return (torch.rand(n, w, generator=gen, device=dev) * 200).to(dtype)
+
+    def ix(kk):
+        return torch.randint(0, n, (kk,), generator=gen, device=dev, dtype=torch.int32)
+
+    flat = torch.rand(n * 75 + 4, generator=gen, device=dev)
+    oob = ix(k)
+    oob[::5], oob[1::7], oob[-1] = -1, n, -(2**31)
+    return [("f32 W=75 table base 4 mod 16", flat[1 : 1 + n * 75].view(n, 75), ix(k)),
+            ("f32 W=75 k=1", tab(75, f32), ix(1)),
+            (f"f32 W=75 k={GATHER_ROWS_A_WARP + 1}", tab(75, f32), ix(GATHER_ROWS_A_WARP + 1)),
+            (f"bf16 W=384 k={GATHER_ROWS_A_WARP + 1}", tab(384, bf16), ix(GATHER_ROWS_A_WARP + 1)),
+            ("f32 W=27", tab(27, f32), ix(k)),
+            ("f32 W=1", tab(1, f32), ix(k)),
+            ("f32 W=3", tab(3, f32), ix(k)),
+            ("f32 W=76", tab(76, f32), ix(k)),
+            ("uint8 W=5", tab(5, torch.uint8), ix(k)),
+            ("f32 W=75 out-of-range indices", tab(75, f32), oob),
+            ("bf16 W=384 out-of-range indices", tab(384, bf16), oob.clone())]
+
+
+def gather_reference(table, idx):
+    """index_select on the indices inside [0, N); zero rows elsewhere."""
+    ok = (idx >= 0) & (idx < table.shape[0])
+    ref = torch.zeros((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    ref[ok] = torch.index_select(table, 0, idx[ok])
+    return ref
+
+
 def phase_gather(gen, dev):
     """The row-gather kernel against index_select (its plain version and the
-    library call) at the vote's finest-level table and at the TPU probe's."""
+    library call), bit for bit: the edge cases of ``gather_cases``, then the
+    vote's finest-level table and the TPU probe's, timed."""
     from fresco_torch.propagate.gather import gather_rows, gather_rows_plain
 
+    for name, table, idx in gather_cases(gen, dev):
+        out = gather_rows(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(out, gather_reference(table, idx)):
+            fail(f"gather case {name}: not bit-equal to index_select")
+        print(f"gather case {name:34s} N={table.shape[0]} K={idx.shape[0]} base mod 16 = "
+              f"{table.data_ptr() % 16}: bit-equal")
     rows = {}
     n = PROP_HW[0] * PROP_HW[1]
     for name, dtype, w in (("vote f32 W=75", torch.float32, 75), ("probe bf16 W=384", torch.bfloat16, 384)):
@@ -588,11 +650,18 @@ def phase_gather(gen, dev):
         torch.cuda.synchronize()
         if not torch.equal(out, gather_rows_plain(table, idx)):
             fail(f"gather {name}: not bit-equal to index_select")
-        ms = cuda_ms(lambda: gather_rows(table, idx))
-        plain_ms = cuda_ms(lambda: gather_rows_plain(table, idx))
-        bnd = bound(n * (2 * w * table.element_size() + 4), 0, 1.0)
-        print(f"gather {name}: {n} rows of {w * table.element_size()} B, random rows, bit-equal; "
-              f"kernel {ms:.4f} ms, plain = library (index_select) {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        ms = cuda_ms(lambda: gather_rows(table, idx), iters=100)
+        plain_ms = cuda_ms(lambda: gather_rows_plain(table, idx), iters=100)
+        rb = w * table.element_size()
+        # the bound: the sectors the random rows touch, each row written, each
+        # index read; beside it the rows' bytes alone (2·row + 4 a row)
+        moved = gather_sector_bytes(table, idx) + n * (rb + 4)
+        bnd = bound(moved, 0, 1.0)
+        flat_bnd = bound(n * (2 * rb + 4), 0, 1.0)
+        print(f"gather {name}: {n} rows of {rb} B, random rows, bit-equal; kernel {ms:.4f} ms "
+              f"({moved / ms / 1e6:.0f} GB/s of sectors moved), plain = library (index_select) {plain_ms:.4f} ms; "
+              f"bound {bnd[0]:.4f} ms (bytes: {moved / n:.1f} B a row, the sectors the rows touch + row + index; "
+              f"the bound), rows' bytes alone {flat_bnd[0]:.4f} ms")
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=plain_ms)
         del table, idx, out
     return rows
@@ -827,6 +896,14 @@ def phase_gemm(gen, dev):
     for r in results:
         print(f"gemm bench {r['row']:44s} {r['route']:18s}: {r['ms']:8.3f} ms {r['tflops']:7.1f} TFLOP/s")
     cases = bg.rows(torch.Generator(device=dev).manual_seed(0), dev)
+    def bf(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # M not a multiple of 64, N of no tile, K under one k-tile, K a multiple
+    # of 8 but not of 64, and a_period > 1 with a 4-D x
+    cases.append(("M=200 N=700 K=40 [2,200,40]x[2,40,700]", bf(2, 200, 40), bf(2, 40, 700)))
+    cases.append(("K=264 [2,256,264]x[2,264,512]", bf(2, 256, 264), bf(2, 264, 512)))
+    cases.append(("a_period 3 [3,200,264]x[2,3,264,136]", bf(3, 200, 264), bf(2, 3, 264, 136)))
     cases.append(("ragged [3,1000,1000]x[3,1000,700]",
                   torch.randn(3, 1000, 1000, generator=gen, device=dev).to(torch.bfloat16),
                   torch.randn(3, 1000, 700, generator=gen, device=dev).to(torch.bfloat16)))
@@ -943,7 +1020,7 @@ def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512):
     bundle = build_models(cfg, tiny=tiny, seed=seed, device=dev, random_aux_weights=True)
     pipe = FrescoPipeline(cfg, bundle)
     pipe.sync_phases = True
-    frames, _, _ = make_inputs(seed, n, res)
+    frames, flows, _ = make_inputs(seed, n, res)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     sync()
     print(f"e2e: built models (GMFlow, HED, EGNet included) in {time.perf_counter() - t0:.1f} s; "
@@ -961,8 +1038,11 @@ def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512):
     bgr = lambda img: np.ascontiguousarray(img[..., ::-1])  # noqa: E731
     tm: dict = {}
     t1 = time.perf_counter()
+    # propagation on the clip's known flows, as phase 8: random GMFlow weights
+    # give meaningless flows (GMFlow still runs, and its flows are consumed,
+    # in the keyframe stage's inter-frame prep)
     out = blend_video_frames({i: bgr(f) for i, f in enumerate(frames)}, {k: bgr(keys[k]) for k in key_ind}, key_ind,
-                             flow_fn=pipe.gmflow_flow_fn(), device=dev, timers_out=tm)
+                             flow_fn=pair_flow_fn(frames, flows, dev), device=dev, timers_out=tm)
     sync()
     t_prop = time.perf_counter() - t1
     launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches,

@@ -42,8 +42,10 @@ def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_s
     from fresco_torch.propagate.video_blend import blend_video
 
     prop_phases: dict = {}
+    # Poisson fusion always, whatever config.use_poisson says: the reference
+    # CLI passes poisson=True (fresco_tpu/cli.py:72)
     blend_dir = blend_video(config.save_path, key_ind=keys, key_dir="keys", flow_fn=pipe.consistency_flow_fn(),
-                            poisson=config.use_poisson, reuse_synthesis=reuse_synthesis, device=pipe.device,
+                            poisson=True, reuse_synthesis=reuse_synthesis, device=pipe.device,
                             timers_out=prop_phases)
     phases = {"keyframes": {k: round(v, 3) for k, v in pipe.phases.times.items()},
               "propagation": {k: round(v, 3) for k, v in prop_phases.items()}}

@@ -401,7 +401,9 @@ class FrescoPipeline:
         return batches
 
     def translate_keyframes(self, frames, key_ind: list[int] | None = None, *,
-                            noise: list[dict] | None = None, verbose: bool = False) -> dict[int, np.ndarray]:
+                            noise: list[dict] | None = None, verbose: bool = False,
+                            on_batch: Callable[[dict[int, np.ndarray]], None] | None = None,
+                            ) -> dict[int, np.ndarray]:
         """The keyframe stage in memory (run_fresco.py:111-270): uint8 RGB
         frames [H, W, 3] (at the working resolution) in, {key index: uint8
         RGB keyframe} out, batch by batch (``keyframe_batches``) with the
@@ -414,7 +416,10 @@ class FrescoPipeline:
         decode: the JAX package's prep thread is not ported, since
         overlapping the prep with the previous denoise on a stream of its
         own was no faster on an H100 80GB HBM3 at 700 W
-        (``ab_prep_overlap.py``)."""
+        (``ab_prep_overlap.py``).  ``on_batch``, when given, is called with
+        each batch's {key index: keyframe} right after its decode, before
+        the next batch starts (``translate_keyframe_files`` writes them
+        there, as the JAX runner does)."""
         from fresco_torch.utils.guards import check_finite
 
         batches = self.keyframe_batches(frames, key_ind)
@@ -431,8 +436,10 @@ class FrescoPipeline:
             check_finite(f"batch{bi}_latents", latents)
             images = self.decode(latents)
             bias = 2 if bi > 0 else 0
-            for ind, num in enumerate(sub):
-                result[num] = images[ind + bias]
+            done = {num: images[ind + bias] for ind, num in enumerate(sub)}
+            result.update(done)
+            if on_batch is not None:
+                on_batch(done)
             if verbose:
                 print(f"[fresco_torch] batch {bi + 1}/{len(batches)}: {len(sub)} keyframes in "
                       f"{time.perf_counter() - t0:.1f}s")
@@ -444,8 +451,10 @@ class FrescoPipeline:
         """``translate_keyframes`` on the config's video file (decoded once,
         with OpenCV): the keyframes are selected on the decoded frames,
         every frame resized to the working resolution is written to
-        save_path/video/%04d.png and the keyframes to save_path/keys/%04d.png.
-        ``reuse``: when every keyframe PNG exists already, skip the
+        save_path/video/%04d.png and the keyframes to save_path/keys/%04d.png,
+        each batch's as soon as it is decoded (fresco_tpu/pipeline/runner.py
+        writes them the same way), so a late failure keeps the batches
+        before it.  ``reuse``: when every keyframe PNG exists already, skip the
         translation.  Returns the key indices."""
         from fresco_torch.propagate.video_blend import _codec
 
@@ -464,8 +473,12 @@ class FrescoPipeline:
             if verbose:
                 print("[fresco_torch] all keyframes present: skipping translation (resume)")
             return keys
-        for k, img in self.translate_keyframes(frames, keys, verbose=verbose).items():
-            Image.fromarray(img).save(key_path(k))
+
+        def save(batch: dict[int, np.ndarray]) -> None:
+            for k, img in batch.items():
+                Image.fromarray(img).save(key_path(k))
+
+        self.translate_keyframes(frames, keys, verbose=verbose, on_batch=save)
         return keys
 
     def consistency_flow_fn(self):

@@ -1,0 +1,339 @@
+"""The row-gather and batched-GEMM kernels' report on the GPU: what the
+compiler says of each kernel instantiation (registers, spills, shared
+memory), which global loads and stores and which tensor-core instructions
+their SASS holds, and variants of each timed in turns on the same inputs.
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc:
+
+    python3 kernel_report.py [--parent DIR]... [--select TEXT] [--no-variants]
+
+A variant is the source with a few strings replaced (the replacements are
+listed below, and a variant whose strings are missing fails), built into a
+temporary directory and called through the same C entry point; all are
+built at once.  ``--parent DIR`` (repeatable) adds the csrc of another
+checkout (for example an unpacked parent commit) as one more variant of
+each kernel, named after the directory; ``--select`` keeps the variants
+whose name holds TEXT.  Each variant is timed with CUDA events over many
+launches, in the order base, variants..., base, and held against
+index_select (bit for bit) or the float32 product, except the variants
+marked timing only, which leave out part of the work on purpose.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import os
+import re
+import subprocess
+import tempfile
+
+import torch
+
+import chip_smoke as cs
+from fresco_torch import kernels
+
+# name -> [(old, new)] replaced in the source
+GATHER_VARIANTS = {
+    "table loads not kept in L1 (L1::no_allocate)": [("ld.global.nc.", "ld.global.nc.L1::no_allocate.")],
+    "default output stores (st.global)": [("{ __stcs(p, v); }", "{ *p = v; }")],
+    "4 rows a warp": [("constexpr int kRows = 8;", "constexpr int kRows = 4;")],
+    "16 rows a warp": [("constexpr int kRows = 8;", "constexpr int kRows = 16;")],
+}
+_BMM_TILE = "constexpr int BN = 128, STAGES = 6;"
+_BMM_LOAD = "    if (pf < nk) load_tiles<VEC>(smem + (pf % STAGES) * STAGE_BYTES, p, A, X, m0, n0, pf * BK);\n"
+_BMM_COMMIT = "    cp_async_commit();  // an empty group keeps the count in step\n"
+_BMM_WGMMA = "      wgmma_ss<1>(acc, "
+# the first build: both tiles in the no-swizzle core-matrix layout, chunk i
+# of a tile at byte 16 i (8 consecutive threads fill one core matrix, so a
+# warp reads 64 bytes of each of 8 rows)
+_BMM_NO_SWIZZLE = [
+    ("    const int r = i / NKC, kc = i % NKC;  // a row of the tile is one 128-byte swizzle row\n"
+     "    const int gm = m0 + r, gk = k0 + kc * 8;\n"
+     "    auto* dst = reinterpret_cast<__nv_bfloat16*>(slot + r * 128 + ((kc ^ (r & 7)) << 4));",
+     "    const int r = (i / (8 * NKC)) * 8 + i % 8, kc = (i / 8) % NKC;\n"
+     "    const int gm = m0 + r, gk = k0 + kc * 8;\n"
+     "    auto* dst = reinterpret_cast<__nv_bfloat16*>(slot + i * 16);"),
+    ("    const int k = i / NNC, nc = i % NNC;  // atom (k / 8, nc / 8): 8 rows of 64 columns\n"
+     "    const int gk = k0 + k, gn = n0 + nc * 8;\n"
+     "    auto* dst = reinterpret_cast<__nv_bfloat16*>(slot + A_BYTES + ((nc >> 3) * (BK / 8) + (k >> 3)) * 1024 +\n"
+     "                                                 (k & 7) * 128 + (((nc & 7) ^ (k & 7)) << 4));",
+     "    const int k = (i / (8 * NNC)) * 8 + i % 8, nc = (i / 8) % NNC;\n"
+     "    const int gk = k0 + k, gn = n0 + nc * 8;\n"
+     "    auto* dst = reinterpret_cast<__nv_bfloat16*>(slot + A_BYTES + i * 16);"),
+    ("wgmma_ss<1>(acc, wgmma_desc_sw128(a_addr + ks * 32, 16, 1024),\n"
+     "                  wgmma_desc_sw128(b_addr + ks * 2 * 1024, (BK / 8) * 1024, 1024), 1);",
+     "wgmma_ss<1>(acc, fresco::wgmma_desc(a_addr + ks * 256, 128, NKC * 128),\n"
+     "                  fresco::wgmma_desc(b_addr + ks * 2 * (NNC * 128), NNC * 128, 128), 1);"),
+]
+# the same layout with the swizzled kernel's thread order: a warp reads
+# whole 128-byte lines, and 8 threads write one 16-byte slot of 8 core
+# matrices (an 8-way bank conflict)
+_BMM_NO_SWIZZLE_LINES = [
+    (_BMM_NO_SWIZZLE[0][0], _BMM_NO_SWIZZLE[0][0].split("\n")[0] + "\n"
+     "    const int gm = m0 + r, gk = k0 + kc * 8;\n"
+     "    auto* dst = reinterpret_cast<__nv_bfloat16*>(slot + ((r / 8) * NKC + kc) * 128 + (r % 8) * 16);"),
+    (_BMM_NO_SWIZZLE[1][0], _BMM_NO_SWIZZLE[1][0].split("\n")[0] + "\n"
+     "    const int gk = k0 + k, gn = n0 + nc * 8;\n"
+     "    auto* dst = reinterpret_cast<__nv_bfloat16*>(slot + A_BYTES + ((k / 8) * NNC + nc) * 128 + (k % 8) * 16);"),
+    _BMM_NO_SWIZZLE[2],
+]
+# direct float2 stores from the accumulators, then return before the staged
+# epilogue
+_BMM_STAGED = "  // the warpgroup's 64 x BN tile into shared memory, in the accumulator layout\n"
+_BMM_DIRECT = (
+    "  for (int j = 0; j < BN / 8; ++j) {\n"
+    "    const int gn = n0 + 8 * j + 2 * (lane & 3);\n"
+    "    for (int h = 0; h < 2; ++h) {\n"
+    "      const int gm = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;\n"
+    "      if (gm >= p.M || gn >= p.N) continue;\n"
+    "      float* dst = O + (long long)gm * p.N + gn;\n"
+    "      if (p.vec_out && gn + 1 < p.N) {\n"
+    "        *reinterpret_cast<float2*>(dst) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);\n"
+    "      } else {\n"
+    "        dst[0] = acc[4 * j + 2 * h];\n"
+    "        if (gn + 1 < p.N) dst[1] = acc[4 * j + 2 * h + 1];\n"
+    "      }\n"
+    "    }\n"
+    "  }\n"
+    "  return;\n")
+_BMM_FIRST = _BMM_NO_SWIZZLE + [(_BMM_TILE, "constexpr int BN = 256, STAGES = 4;")]
+# a variant whose name starts with TIMING_ONLY computes a wrong product on
+# purpose (a part of the work left out) and is timed, not checked
+TIMING_ONLY = "timing only: "
+BMM_VARIANTS = {
+    "no-swizzle layout, 128x256 (first build)": _BMM_FIRST,
+    TIMING_ONLY + "first build, no refill in the loop": _BMM_FIRST + [(_BMM_LOAD, "")],
+    TIMING_ONLY + "first build, no wgmma": _BMM_FIRST + [(_BMM_WGMMA, "if (false) " + _BMM_WGMMA)],
+    "first build with whole-line reads": _BMM_NO_SWIZZLE_LINES + _BMM_FIRST[-1:],
+    TIMING_ONLY + "no refill in the loop": [(_BMM_LOAD, "")],
+    TIMING_ONLY + "no wgmma": [(_BMM_WGMMA, "if (false) " + _BMM_WGMMA)],
+    "wgmma issued before the refill": [(_BMM_LOAD + _BMM_COMMIT, ""),
+                                       ("    wgmma_commit();\n", "    wgmma_commit();\n" + _BMM_LOAD + _BMM_COMMIT)],
+    "direct float2 stores, no staging": [(_BMM_STAGED, "#pragma unroll\n" + _BMM_DIRECT.replace(
+        "    for (int h", "#pragma unroll\n    for (int h") + _BMM_STAGED)],
+    "two wgmma groups in flight, 3 tiles ahead": [
+        ("  for (int s = 0; s < STAGES - 2; ++s) {", "  for (int s = 0; s < STAGES - 3; ++s) {"),
+        ("cp_async_wait<STAGES - 3>();", "cp_async_wait<STAGES - 4>();"),
+        ("const int pf = kt + STAGES - 2;", "const int pf = kt + STAGES - 3;"),
+        ("    wgmma_wait<1>();", "    wgmma_wait<2>();")],
+    "128x256, 4 stages": [(_BMM_TILE, "constexpr int BN = 256, STAGES = 4;")],
+    "128x128, 5 stages": [(_BMM_TILE, "constexpr int BN = 128, STAGES = 5;")],
+    "128x128, 3 stages, 2 blocks a SM": [(_BMM_TILE, "constexpr int BN = 128, STAGES = 3;"),
+                                         ("__launch_bounds__(NTHREADS, 1)", "__launch_bounds__(NTHREADS, 2)")],
+    "192x256 (3 warpgroups), 4 stages": [("constexpr int BM = 128, BK = 64, NTHREADS = 256;",
+                                          "constexpr int BM = 192, BK = 64, NTHREADS = 384;"),
+                                         (_BMM_TILE, "constexpr int BN = 256, STAGES = 4;")],
+}
+
+
+def compile_cubin(src: str, tmp: str) -> tuple[str, str]:
+    """(cubin path, ptxas's report) of one source."""
+    cubin = os.path.join(tmp, os.path.basename(src) + ".cubin")
+    proc = subprocess.run([kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+                           "-cubin", "-o", cubin, src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        cs.fail(f"nvcc -cubin {src} failed:\n{proc.stdout}\n{proc.stderr}")
+    return cubin, proc.stderr
+
+
+def short(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name."""
+    base = re.search(r"([a-z][a-z_]*_kernel)", mangled)
+    unit = re.search(r"_kernelI(5uint4|5uint2|j|t|h)", mangled)
+    args = ([unit.group(1).lstrip("5")] if unit else []) + re.findall(r"L[ib](-?\d+)E", mangled)
+    return f"{base.group(1) if base else mangled}<{', '.join(args)}>"
+
+
+def ptxas_report(src: str, stderr: str) -> None:
+    name, stack = None, ""
+    for line in stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, stack = short(m.group(1)), ""
+        elif "bytes stack frame" in line:
+            stack = line.strip()
+        elif "Used" in line and name:
+            print(f"ptxas {os.path.basename(src)} {name}: {line.split('Used', 1)[1].strip()}; {stack}")
+            name = None
+        elif "arning" in line or "erializ" in line:
+            print(f"ptxas {os.path.basename(src)} {line.strip()[:300]}")
+
+
+def sass_report(cubin: str) -> None:
+    """Per kernel: counts of global loads / stores / async copies by width
+    and of tensor-core instructions, and whether every global load of the
+    table comes before the first global store."""
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    proc = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True)
+    if proc.returncode != 0:
+        cs.fail(f"cuobjdump -sass failed: {proc.stderr}")
+    funcs: dict[str, list[str]] = {}
+    cur = None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = short(m.group(1))
+            funcs[cur] = []
+        elif cur:
+            op = re.search(r"\b(LDG|STG|LDGSTS|HGMMA|HMMA|LDSM|STS|LDS|WARPGROUP\.\w+|BAR\.\w+)[\w.]*", line)
+            if op:
+                funcs[cur].append(op.group(0))
+    for name, ops in funcs.items():
+        counts = collections.Counter(ops)
+        loads = [i for i, o in enumerate(ops) if o.startswith("LDG")]
+        stores = [i for i, o in enumerate(ops) if o.startswith("STG")]
+        order = ""
+        if loads and stores:
+            order = f"; global loads before the first global store: {sum(i < stores[0] for i in loads)} of {len(loads)}"
+        print(f"sass {name}: " + ", ".join(f"{k} x{v}" for k, v in sorted(counts.items())) + order)
+
+
+def variant_source(src: str, subs: list[tuple[str, str]], tmp: str, tag: str) -> str:
+    """The source with `subs` applied, in a directory of its own beside
+    copies of the headers; fails if a string to replace is missing."""
+    text = open(src).read()
+    for old, new in subs:
+        if old not in text:
+            cs.fail(f"variant {tag}: {old!r} is not in {src}")
+        text = text.replace(old, new)
+    vdir = os.path.join(tmp, tag)
+    os.makedirs(vdir, exist_ok=True)
+    vsrc = os.path.join(vdir, os.path.basename(src))
+    with open(vsrc, "w") as f:
+        f.write(text)
+    for h in os.listdir(os.path.dirname(src)):  # the headers beside the source
+        if h.endswith(".cuh"):
+            with open(os.path.join(os.path.dirname(src), h)) as fh, open(os.path.join(vdir, h), "w") as fo:
+                fo.write(fh.read())
+    return vsrc
+
+
+def build_all(srcs: dict[str, str], entry: str) -> dict:
+    """{tag: bound C entry point}, one nvcc per source, all at once."""
+    procs = {}
+    for tag, vsrc in srcs.items():
+        lib = os.path.join(os.path.dirname(vsrc), "lib.so")
+        procs[tag] = (lib, subprocess.Popen([kernels._nvcc(), *kernels.ARCH_FLAGS, *kernels.NVCC_FLAGS, "-o", lib,
+                                             vsrc], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for tag, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            cs.fail(f"variant {tag} failed to build:\n{out}")
+        libs[tag] = bind(ctypes.CDLL(lib), entry)
+    return libs
+
+
+def bind(lib: ctypes.CDLL, name: str):
+    fn = getattr(lib, name)
+    fn.argtypes = kernels._SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def timed_turns(fns: dict, iters: int) -> dict:
+    """Mean ms of each callable, in the order given and then the first again."""
+    names = list(fns)
+    out = collections.defaultdict(list)
+    for n in names + names[:1]:
+        out[n].append(cs.cuda_ms(fns[n], iters=iters))
+    return out
+
+
+def gather_variants(libs: dict, dev) -> None:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = cs.PROP_HW[0] * cs.PROP_HW[1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, dtype, w in (("vote f32 W=75", torch.float32, 75), ("probe bf16 W=384", torch.bfloat16, 384)):
+        table = (torch.rand(n, w, generator=gen, device=dev) * 255).to(dtype)
+        idx = torch.randint(0, n, (n,), generator=gen, device=dev, dtype=torch.int32)
+        ref = torch.index_select(table, 0, idx)
+        rb = w * table.element_size()
+        fns = {}
+        for tag, fn in libs.items():
+            out = torch.empty_like(ref)
+
+            def call(fn=fn, out=out):
+                kernels.check(fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, n, rb, stream), "row_gather")
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                cs.fail(f"gather variant {tag} at {name}: not bit-equal to index_select")
+            fns[tag] = call
+        fns["index_select"] = lambda: torch.index_select(table, 0, idx)
+        moved = cs.gather_sector_bytes(table, idx) + n * (rb + 4)
+        for tag, ms in timed_turns(fns, 200).items():
+            print(f"gather variant {name} {tag:44s}: " + " / ".join(f"{m:.4f}" for m in ms)
+                  + f" ms ({moved / min(ms) / 1e6:.0f} GB/s of sectors moved)")
+
+
+def bmm_variants(libs: dict, dev) -> None:
+    from fresco_torch.scripts import bench_gemm as bg
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = bg.rows(torch.Generator(device=dev).manual_seed(0), dev)
+    for name, a, x in cases:
+        ref = bg.bmm_plain(a, x)
+        b, m, k = a.shape
+        n = x.shape[-1]
+        nb = x.shape[:-2].numel()
+        fns = {}
+        for tag, fn in libs.items():
+            out = torch.empty_like(ref)
+
+            def call(fn=fn, out=out):
+                kernels.check(fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), nb, m, n, k, b, stream), "bmm")
+
+            call()
+            torch.cuda.synchronize()
+            rel = ((out - ref).norm() / ref.norm()).item()
+            if not (rel <= cs.GEMM_REL_FRO or tag.startswith(TIMING_ONLY)):
+                cs.fail(f"bmm variant {tag} at {name}: rel fro {rel}")
+            fns[tag] = call
+        fns["torch.matmul bf16"] = lambda: torch.matmul(a, x)
+        for tag, ms in timed_turns(fns, 20).items():
+            print(f"bmm variant {name} {tag:30s}: " + " / ".join(f"{m_:.3f}" for m_ in ms)
+                  + f" ms ({bg.flops(a, x) / min(ms) / 1e9:.1f} TFLOP/s)")
+        del ref
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", action="append", default=[],
+                    help="another checkout whose csrc is timed beside this one (may be repeated)")
+    ap.add_argument("--no-variants", action="store_true")
+    ap.add_argument("--select", default="", help="only the variants whose name holds this string")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is False: this report needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for kern, variants, entry, run in (("row_gather", GATHER_VARIANTS, "fresco_row_gather", gather_variants),
+                                           ("bmm", BMM_VARIANTS, "fresco_bmm", bmm_variants)):
+            src = os.path.join(kernels.CSRC, f"{kern}.cu")
+            cubin, err = compile_cubin(src, tmp)
+            ptxas_report(src, err)
+            sass_report(cubin)
+            if args.no_variants:
+                continue
+            srcs = {"this tree": variant_source(src, [], tmp, f"{kern}_base")}
+            for i, tree in enumerate(args.parent):
+                psrc = os.path.join(tree, "fresco_torch", "csrc", f"{kern}.cu")
+                if not os.path.exists(psrc):
+                    print(f"{kern}: {tree} has no {kern}.cu; skipped")
+                    continue
+                srcs[os.path.basename(os.path.normpath(tree))] = variant_source(psrc, [], tmp, f"{kern}_tree{i}")
+            for i, (tag, subs) in enumerate(variants.items()):
+                if args.select in tag:
+                    srcs[tag] = variant_source(src, subs, tmp, f"{kern}_v{i}")
+            libs = build_all(srcs, entry)
+            run(libs, dev)
+
+
+if __name__ == "__main__":
+    main()

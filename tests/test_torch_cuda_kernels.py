@@ -125,22 +125,35 @@ def test_sign_gram_kernel_matches_plain(cuda_device, b, hw, c, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,w", [(torch.float32, 75), (torch.bfloat16, 384), (torch.bfloat16, 3),
-                                     (torch.float32, 8), (torch.uint8, 5)])
-def test_row_gather_kernel_bit_equal(cuda_device, dtype, w):
+@pytest.mark.parametrize("dtype,w,k,base", [
+    (torch.float32, 75, 777, 0), (torch.bfloat16, 384, 777, 0), (torch.bfloat16, 3, 777, 0),
+    (torch.float32, 8, 777, 0), (torch.uint8, 5, 777, 0),
+    (torch.float32, 75, 777, 1),                              # table base 4 but not 16 bytes aligned
+    (torch.float32, 75, 1, 0), (torch.float32, 75, 9, 0),     # one row; a warp's 8 rows + 1
+    (torch.bfloat16, 384, 9, 0),
+    (torch.float32, 1, 777, 0), (torch.float32, 3, 777, 0), (torch.float32, 27, 777, 0),
+    (torch.float32, 76, 777, 0)])
+def test_row_gather_kernel_bit_equal(cuda_device, dtype, w, k, base):
     from fresco_torch.propagate.gather import gather_rows, gather_rows_plain
 
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    n, k = 1000, 777
-    table = (torch.rand(n, w, device=cuda_device, generator=g) * 200).to(dtype)
+    n = 1000
+    flat = (torch.rand(n * w + base, device=cuda_device, generator=g) * 200).to(dtype)
+    table = flat[base:].view(n, w)
     idx = torch.randint(0, n, (k,), device=cuda_device, generator=g, dtype=torch.int32)
     before = gather_rows.launches
     out = gather_rows(table, idx)
     torch.cuda.synchronize()
     assert gather_rows.launches == before + 1
     assert torch.equal(out, gather_rows_plain(table, idx))
-    bad = torch.tensor([-1, n], dtype=torch.int32, device=cuda_device)
-    assert (gather_rows(table, bad) == 0).all()
+    # indices outside [0, N) give zero rows; the others are still gathered
+    bad = idx.clone()
+    bad[::3] = -1
+    bad[1::4] = n
+    ok = (bad >= 0) & (bad < n)
+    out = gather_rows(table, bad)
+    assert (out[~ok] == 0).all()
+    assert torch.equal(out[ok], gather_rows_plain(table, bad[ok]))
 
 
 def _patch_inputs(dev, sh, sw, th, tw, c, patch, seed=0):
@@ -199,7 +212,12 @@ def test_patch_eval_kernel_matches_plain(cuda_device, c, patch, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xshape,m", [((3, 264, 136), 200), ((2, 37, 29), 53), ((1, 512, 640), 256),
-                                      ((2, 3, 96, 40), 70)])
+                                      ((2, 3, 96, 40), 70),
+                                      ((2, 40, 700), 200),       # K under one k-tile, N of no tile
+                                      ((2, 264, 512), 256),      # K a multiple of 8, not of 64
+                                      ((2, 3, 264, 136), 200),   # a_period 3, 4-D x
+                                      ((1, 1000, 264), 300),     # a ragged last k-tile after a full ring
+                                      ((2, 133, 45), 77)])       # K and N not multiples of 8
 def test_bmm_kernel_matches_plain(cuda_device, xshape, m):
     from fresco_torch.scripts.bench_gemm import bmm, bmm_plain
 

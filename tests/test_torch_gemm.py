@@ -22,7 +22,8 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("b,m,k,n", [(3, 37, 53, 29), (2, 130, 264, 72), (1, 16, 8, 8)])
+@pytest.mark.parametrize("b,m,k,n", [(3, 37, 53, 29), (2, 130, 264, 72), (1, 16, 8, 8),
+                                     (2, 200, 40, 700)])  # M, N no tile divides, K under one k-tile
 def test_bmm_cpu_matches_jax_einsum(b, m, k, n):
     rng = np.random.default_rng(0)
     a, x = _bf16(rng, (b, m, k)), _bf16(rng, (b, k, n))

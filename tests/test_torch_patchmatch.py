@@ -96,16 +96,27 @@ def test_patch_layouts_and_omega_match(level_inputs):
         T._flat_patches(_t(x), 5, torch.uint8)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
-def test_gather_rows_equals_take(dtype):
+@pytest.mark.parametrize("dtype,w,k", [
+    pytest.param(np.float32, 75, 517, id="float32"),
+    pytest.param(jnp.bfloat16, 75, 517, id="bfloat16"),
+    # the widths and counts the card kernel splits on: one-word and
+    # 76-word rows, no row and a single row
+    pytest.param(np.float32, 1, 517, id="float32-w1"),
+    pytest.param(np.float32, 76, 517, id="float32-w76"),
+    pytest.param(jnp.bfloat16, 76, 517, id="bfloat16-w76"),
+    pytest.param(np.float32, 75, 0, id="float32-k0"),
+    pytest.param(np.float32, 75, 1, id="float32-k1")])
+def test_gather_rows_equals_take(dtype, w, k):
     rng = np.random.default_rng(1)
-    table = jnp.asarray(rng.uniform(0, 255, (300, 75)).astype(np.float32)).astype(dtype)
-    idx = rng.integers(0, 300, 517).astype(np.int32)
+    table = jnp.asarray(rng.uniform(0, 255, (300, w)).astype(np.float32)).astype(dtype)
+    idx = rng.integers(0, 300, k).astype(np.int32)
     ref = np.asarray(jnp.take(table, jnp.asarray(idx), axis=0).astype(jnp.float32))
     tt = _t(table.astype(jnp.float32))
     if dtype == jnp.bfloat16:
         tt = tt.to(torch.bfloat16)
-    np.testing.assert_array_equal(gather_rows(tt, _t(idx)).float().numpy(), ref)
+    out = gather_rows(tt, _t(idx))
+    assert out.shape == (k, w)
+    np.testing.assert_array_equal(out.float().numpy(), ref)
 
 
 def test_plain_patch_eval_equals_eval_cand(level_inputs):
