@@ -19,10 +19,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                first / last / two adjacent key tiles masked, fewer keys than
                a tile or than the ring is deep, d = 8..256, more key tiles
                than the kernel lists at a time) and the empty batch row;
-  3. gram    : the sign-gram kernels against the chunked plain version at
-               the four decoder-stage shapes and a ragged hw = 1280 in
-               bf16 (the main path's gram dtype), and at two of them in
-               float32;
+  3. gram    : the sign-gram pair (bf16: the wgmma sign kernel, then bmm
+               as the apply) against the chunked plain version at the four
+               decoder-stage shapes and hw = 1280 in bf16 (the main path's
+               gram dtype), and at two of them in float32; the sign kernel,
+               the apply and the pair timed, beside the two cuBLAS
+               products alone;
   4. small   : a small-width 64 px batch (FRESCO attention on, feature
                optimization off) on the card (kernels, bf16) and on the CPU
                (plain versions, float32) with the same weights and noise,
@@ -31,7 +33,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                FrescoPipeline._translate_batch and decode, at full SD1.5
                width (UNet, ControlNet, VAE, CLIP-L text) with random
                weights from a seeded torch.Generator, config_music's
-               settings.  Both kernels' launch counters must move.
+               settings.  The flash, sign-gram and bmm launch counters
+               must move; the sign-gram launches are printed by shape
+               beside phase 3's time at each;
   6. gather  : the row-gather kernel against index_select, bit for bit:
                a table base 4 but not 16 bytes aligned, k = 1 and one more
                than a warp's rows, widths 1, 3, 27, 75, 76 (float32), 384
@@ -65,8 +69,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                keyframes in 2 batches), GMFlow flows, HED control, EGNet
                background smoothing at steps 16 and 17, the latent record
                carried, then blend_video_frames on the clip's known flows
-               (GMFlow's, from random weights, are noise).  All four
-               main-path kernels' launch counters must move; the keyframes
+               (GMFlow's, from random weights, are noise).  All five
+               main-path kernels' launch counters must move (bmm as the
+               sign-gram pair's apply); the keyframes
                must pass through propagation unchanged.  Phases are
                synchronized, so the breakdown is device time.
 Every kernel line gives its time, its plain version's, its bound (the
@@ -140,6 +145,13 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn) -> float:
+    """cuda_ms, over 200 calls where 10 read under half a millisecond (such
+    calls read up to 2x apart over 10 launches)."""
+    ms = cuda_ms(fn)
+    return cuda_ms(fn, iters=200) if ms < 0.5 else ms
 
 
 def plain_attention_chunked(q, k, v, mask, q_chunk: int):
@@ -245,10 +257,6 @@ def phase_flash(gen, dev):
             fail(f"flash {name}: max|d| {err}, rel fro {rel}")
         return err, rel, ref.abs().max().item()
 
-    def timed(fn):  # calls under half a millisecond read up to 2x apart over 10 launches
-        ms = cuda_ms(fn)
-        return cuda_ms(fn, iters=200) if ms < 0.5 else ms
-
     sdpa = torch.nn.functional.scaled_dot_product_attention
     clock_hz = sm_clock_hz()
     print(f"flash bounds: exp2 rate 132 SMs x 16 a clock x {clock_hz / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
@@ -325,7 +333,10 @@ def phase_gram(gen, dev):
     rounding, other summation order); and the apply product must equal
     S_kernel·v in float32 (GRAM_APPLY_REL).  The relative Frobenius error
     against the plain version is bounded by GRAM_REL_FRO (a few flips move
-    it ~1e-2 at hw = 64, where a row has only 64 terms)."""
+    it ~1e-2 at hw = 64, where a row has only 64 terms).  Times: the sign
+    kernel, the apply (bf16: bmm) and the pair; beside them the two cuBLAS
+    products alone (v·vᵀ, then S·v, in the gram dtype, no sign), a
+    yardstick and not a library call for the function."""
     from fresco_torch.ops import gram_kernel as gk
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -343,7 +354,10 @@ def phase_gram(gen, dev):
         ref = gk.sign_gram_plain(v, corr)
         rel = ((out - ref).norm() / ref.norm()).item()
         err = (out - ref).abs().max().item()
-        s_kernel = gk.sign_matrix(v, corr)[:, :, :hw].float()
+        s_raw = gk.sign_matrix(v, corr)
+        s_kernel = s_raw[:, :, :hw].float()
+        if dtype == bf16 and not (s_raw.dtype == bf16 and s_raw.shape == (b, hw, hw)):
+            fail(f"gram hw={hw} c={c}: sign_matrix gave {s_raw.dtype} {tuple(s_raw.shape)}")
         vf = v.float()
         flips, tie_max = 0, 0.0
         ref_ks = torch.empty_like(out)
@@ -355,20 +369,26 @@ def phase_gram(gen, dev):
                 tie_max = max(tie_max, d[flip].abs().max().item())
             ref_ks[:, r0 : r0 + 1024] = torch.matmul(s_kernel[:, r0 : r0 + 1024], vf)
         apply_rel = ((out - ref_ks).norm() / ref_ks.norm()).item()
-        ms = cuda_ms(lambda: gk.sign_gram_apply(v, corr))
+        sign_ms = timed(lambda: gk.sign_matrix(v, corr))
+        apply_ms = timed(lambda: gk.apply_sign(s_raw, v))
+        ms = timed(lambda: gk.sign_gram_apply(v, corr))
         plain_ms = cuda_ms(lambda: gk.sign_gram_plain(v, corr), iters=3)
+        s_lib = s_kernel.to(dtype)
+        cublas_ms = timed(lambda: (torch.matmul(v, v.transpose(1, 2)), torch.matmul(s_lib, v)))
         # two products of 2·B·hw²·c; v and C read, the f32 output written
         bnd = bound(v.numel() * v.element_size() + corr.numel() * corr.element_size() + out.numel() * 4,
                     4 * b * hw * hw * c, BF16_TENSOR_FLOPS if dtype == bf16 else F32_CUDA_CORE_FLOPS)
         print(f"gram {str(dtype)[6:]} hw={hw} c={c} B={b}: rel fro {rel:.3e} (tol {GRAM_REL_FRO}), max|d|={err:.3e}, "
               f"flipped signs {flips}/{b * hw * hw} (largest |G-C| at a flip {tie_max:.2e}, tol {GRAM_TIE}), "
               f"apply vs S_kernel.v rel {apply_rel:.2e} (tol {GRAM_APPLY_REL}), "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), library none")
+              f"kernel pair {ms:.3f} ms (sign {sign_ms:.3f} + apply {apply_ms:.3f}), plain {plain_ms:.3f} ms, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]}), cuBLAS products, no sign {cublas_ms:.3f} ms, library none")
         if not (rel <= GRAM_REL_FRO and tie_max <= GRAM_TIE and apply_rel <= GRAM_APPLY_REL):
             fail(f"gram {dtype} hw={hw} c={c}: rel {rel}, tie {tie_max}, apply {apply_rel}")
-        rows[(dtype, hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        rows[(dtype, hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                                    sign_ms=sign_ms, apply_ms=apply_ms, cublas_products_ms=cublas_ms)
         max_err = max(max_err, err)
-        del v, vf, vr, corr, out, ref, s_kernel, ref_ks
+        del v, vf, vr, corr, out, ref, s_raw, s_kernel, s_lib, ref_ks
     return rows, max_err
 
 
@@ -490,8 +510,26 @@ def phase_small(seed: int, dev):
         fail(f"small batch: relative error {rel} > {SMALL_REL_FRO}")
 
 
-def phase_slice(seed: int, dev):
+def sign_gram_by_shape(label: str, gram_rows) -> None:
+    """The sign-gram launches of the last run by (hw, c), each beside the
+    pair's phase-3 time at that shape (B = 16) and their product."""
+    from fresco_torch.ops.gram_kernel import sign_gram_apply
+
+    parts, total = [], 0.0
+    for (hw, c), n in sorted(sign_gram_apply.launches_by_shape.items()):
+        r = (gram_rows or {}).get((torch.bfloat16, hw, c))
+        if r is None:
+            parts.append(f"hw={hw} c={c}: {n} launches (no phase-3 time at this shape)")
+            continue
+        total += n * r["ms"]
+        parts.append(f"hw={hw} c={c}: {n} launches x {r['ms']:.3f} ms (sign {r['sign_ms']:.3f} + apply "
+                     f"{r['apply_ms']:.3f}) = {n * r['ms'] / 1e3:.3f} s")
+    print(f"{label} sign-gram by shape: " + "; ".join(parts) + f"; total {total / 1e3:.3f} s of phase-3 kernel time")
+
+
+def phase_slice(seed: int, dev, gram_rows=None):
     from fresco_torch.attention.flash import flash_attention
+    from fresco_torch.ops.gemm import bmm
     from fresco_torch.ops.gram_kernel import sign_gram_apply
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
     from fresco_torch.utils.guards import check_finite
@@ -515,12 +553,15 @@ def phase_slice(seed: int, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     flash_attention.launches = 0
     sign_gram_apply.launches = 0
+    sign_gram_apply.launches_by_shape.clear()
+    bmm.launches = 0
     t0 = time.perf_counter()
     latents, record = pipe._translate_batch(frames, prompts, negs, None, False)
     images = pipe.decode(latents)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches}
+    launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches,
+                "bmm": bmm.launches}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
 
     ph = pipe.phases.times
@@ -531,6 +572,7 @@ def phase_slice(seed: int, dev):
     print("slice phases (s, synchronized): " + ", ".join(f"{a} {ph.get(b, 0.0):.3f}" for a, b in names))
     print(f"slice: {n} keyframes {res}x{res}, {cfg.num_inference_steps} steps, wall {wall:.2f} s, "
           f"peak device memory {peak_gb:.2f} GiB, launches {launches}")
+    sign_gram_by_shape("slice", gram_rows)
     check_finite("slice_latents", latents)
     print(f"slice: latents finite, shape {tuple(latents.shape)}, |max| {latents.abs().max().item():.3f}; "
           f"record {tuple(record.shape)}; output {images.shape} {images.dtype}")
@@ -887,11 +929,12 @@ AUX_MASK_ATOL = 1e-3     # EGNet background mask in [0, 1]
 def phase_gemm(gen, dev):
     """The microbench entry point, counted; then every row (and two ragged
     shapes) against the float32 plain version."""
+    from fresco_torch.ops import gemm
     from fresco_torch.scripts import bench_gemm as bg
 
-    bg.bmm.launches = 0
+    gemm.bmm.launches = 0
     results = bg.run(iters=10, seed=0)
-    launches = bg.bmm.launches
+    launches = gemm.bmm.launches
     timed = {(r["row"], r["route"]): r for r in results}
     for r in results:
         print(f"gemm bench {r['row']:44s} {r['route']:18s}: {r['ms']:8.3f} ms {r['tflops']:7.1f} TFLOP/s")
@@ -912,8 +955,8 @@ def phase_gemm(gen, dev):
                   torch.randn(2, 133, 45, generator=gen, device=dev).to(torch.bfloat16)))
     rows, max_err = {}, 0.0
     for name, a, x in cases:
-        ref = bg.bmm_plain(a, x)
-        out = bg.bmm(a, x)
+        ref = gemm.bmm_plain(a, x)
+        out = gemm.bmm(a, x)
         torch.cuda.synchronize()
         rel = ((out - ref).norm() / ref.norm()).item()
         err = (out - ref).abs().max().item()
@@ -924,7 +967,7 @@ def phase_gemm(gen, dev):
         if (name, "bmm") in timed:
             ms = timed[(name, "bmm")]["ms"]
             lib_ms = timed[(name, "torch.matmul bf16")]["ms"]
-            plain_ms = cuda_ms(lambda: bg.bmm_plain(a, x), iters=2)
+            plain_ms = cuda_ms(lambda: gemm.bmm_plain(a, x), iters=2)
             bnd = bound(2 * (a.numel() + x.numel()) + 4 * ref.numel(), bg.flops(a, x), BF16_TENSOR_FLOPS)
             print(f"gemm {name}: kernel {ms:.3f} ms ({bg.flops(a, x) / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
                   f"bound {bnd[0]:.3f} ms ({bnd[1]}), library (torch bf16 product) {lib_ms:.3f} ms")
@@ -933,7 +976,7 @@ def phase_gemm(gen, dev):
     print(f"gemm: microbench launches {launches}")
     if launches <= 0:
         fail("gemm: the microbench did not launch the kernel")
-    return rows, max_err, launches
+    return rows, max_err
 
 
 def _full_width_aux(seed: int):
@@ -1002,10 +1045,11 @@ def phase_aux(seed: int, dev, big: bool = True):
 E2E_FRAMES, E2E_MININTERV, E2E_MAXINTERV = 41, 3, 5
 
 
-def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512):
+def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512, gram_rows=None):
     """Keyframes (selection, 2 batches with the record carried, GMFlow, HED,
     EGNet background smoothing) then propagation of the whole clip."""
     from fresco_torch.attention.flash import flash_attention
+    from fresco_torch.ops.gemm import bmm
     from fresco_torch.ops.gram_kernel import sign_gram_apply
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
     from fresco_torch.propagate.gather import gather_rows
@@ -1028,8 +1072,9 @@ def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512):
           f"{'on' if bundle.saliency_fn else 'off'}")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for k in (flash_attention, sign_gram_apply, gather_rows, patch_eval):
+    for k in (flash_attention, sign_gram_apply, gather_rows, patch_eval, bmm):
         k.launches = 0
+    sign_gram_apply.launches_by_shape.clear()
     t0 = time.perf_counter()
     keys = pipe.translate_keyframes(frames, verbose=True)
     sync()
@@ -1047,11 +1092,14 @@ def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512):
     t_prop = time.perf_counter() - t1
     launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches,
                 "row_gather": gather_rows.launches, "patch_eval": patch_eval.launches}
+    if cfg.gram_dtype == "bfloat16":  # the bf16 pair's apply is bmm
+        launches["bmm"] = bmm.launches
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
     ph = pipe.phases.times
     print(f"e2e: {n} frames {res}x{res}, {len(key_ind)} keyframes {key_ind}, keyframe stage {t_keys:.2f} s, "
           f"propagation {t_prop:.2f} s, wall {t_keys + t_prop:.2f} s, peak device memory "
           f"{peak_gb:.2f} GiB, launches {launches}")
+    sign_gram_by_shape("e2e", gram_rows)
     names = [("gmflow/interframe_prep", "interframe_prep"), ("saliency", "saliency"),
              ("control_detector", "control_detector"), ("intraframe_prep", "intraframe_prep"),
              ("attn_params", "attn_params"), ("encode_prompts", "encode_prompts"), ("denoise_loop", "denoise_loop"),
@@ -1099,14 +1147,14 @@ def main() -> None:
     flash_rows, flash_err = phase_flash(gen, dev)
     gram_rows, gram_err = phase_gram(gen, dev)
     phase_small(args.seed, dev)
-    launches = phase_slice(args.seed, dev)
+    launches = phase_slice(args.seed, dev, gram_rows)
     gather_rows_ = phase_gather(gen, dev)
     pe_rows, pe_err = phase_patch_eval(args.seed, dev)
     phase_small_propagate(args.seed, dev)
     launches.update(phase_propagate(args.seed, dev))
-    gemm_rows, gemm_err, launches["bmm"] = phase_gemm(gen, dev)
+    gemm_rows, gemm_err = phase_gemm(gen, dev)
     phase_aux(args.seed, dev)
-    phase_e2e(args.seed, dev)
+    phase_e2e(args.seed, dev, gram_rows=gram_rows)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -5,12 +5,13 @@ Counterpart of ``fresco_tpu/cli.py`` (reference run_fresco.py:302-318):
     python -m fresco_torch.cli <config.yaml> [--tiny] [--keyframes-only] [--device cpu]
 
 Keyframe translation writes save_path/video/ and save_path/keys/; with
-``run_ebsynth`` the propagation stage writes save_path/blend/, and the
+``run_ebsynth`` the propagation stage writes save_path/blend/ and
+save_path/blend.mp4 (at the input's frame rate, else 30), and the
 run writes phases.json (keyframe and propagation phase seconds) and
 metrics.json (warp error and frame similarity of the blended clip and of
 the input).  Propagation and the metrics take Farneback flows through
 OpenCV where ``cv2`` can be imported, else the bundle's GMFlow.  Decoding
-the .mp4 needs ``cv2``.  The device defaults to the card.
+the .mp4 and writing blend.mp4 need ``cv2``.  The device defaults to the card.
 """
 from __future__ import annotations
 
@@ -39,14 +40,16 @@ def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_s
     if keyframes_only or not config.run_ebsynth:
         return None
 
-    from fresco_torch.propagate.video_blend import blend_video
+    from fresco_torch.propagate.video_blend import blend_video, get_fps
 
     prop_phases: dict = {}
     # Poisson fusion always, whatever config.use_poisson says: the reference
     # CLI passes poisson=True (fresco_tpu/cli.py:72)
-    blend_dir = blend_video(config.save_path, key_ind=keys, key_dir="keys", flow_fn=pipe.consistency_flow_fn(),
-                            poisson=True, reuse_synthesis=reuse_synthesis, device=pipe.device,
-                            timers_out=prop_phases)
+    blend_dir = blend_video(config.save_path, key_ind=keys, key_dir="keys",
+                            output=os.path.join(config.save_path, "blend.mp4"),
+                            fps=get_fps(config.file_path) or 30, n_proc=config.max_process,
+                            flow_fn=pipe.consistency_flow_fn(), poisson=True, reuse_synthesis=reuse_synthesis,
+                            device=pipe.device, timers_out=prop_phases)
     phases = {"keyframes": {k: round(v, 3) for k, v in pipe.phases.times.items()},
               "propagation": {k: round(v, 3) for k, v in prop_phases.items()}}
     with open(os.path.join(config.save_path, "phases.json"), "w") as f:

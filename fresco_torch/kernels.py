@@ -36,8 +36,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "fresco_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_L] * 13 + [_F, _P],
+    # v, c, s, B, hw, ch, lds, f32, stream
     "fresco_sign_gram_sign": [_P] * 3 + [_I] * 5 + [_P],
-    "fresco_sign_gram_apply": [_P] * 3 + [_I] * 5 + [_P],
+    # s, vt, out, B, hw, ch, lds, stream
+    "fresco_sign_gram_apply_f32": [_P] * 3 + [_I] * 4 + [_P],
     # table, idx, out, n_rows, k, row_bytes, stream
     "fresco_row_gather": [_P] * 3 + [_L, _L, _L, _P],
     # src, tgt, weights, omega, nnf_in, e_in, nnf_out, e_out, deltas, tiles, mask,
@@ -142,9 +144,12 @@ def check(rc: int, name: str) -> None:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``.  A wrapper may be called from any
+def count_launch(wrapper, shape=None) -> None:
+    """Add one to ``wrapper.launches`` and, given ``shape``, to
+    ``wrapper.launches_by_shape[shape]``.  A wrapper may be called from any
     thread (propagation synthesizes on worker threads), so the count is
     taken under a lock and no launch is lost."""
     with _count_lock:
         wrapper.launches += 1
+        if shape is not None:
+            wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1

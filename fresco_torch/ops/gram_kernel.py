@@ -12,17 +12,22 @@ C is read as stored, the sign is cast back to the gram dtype for the
 apply product, and the output is the UNSCALED f32 product (the caller
 applies 2/(B·hw²)).
 
-On CUDA, ``sign_gram_apply`` runs the two kernels of
-``fresco_torch/csrc/sign_gram.cu`` (bf16 on the tensor cores, f32 on the
-CUDA cores; it raises for any other dtype); on CPU it runs
-``sign_gram_plain``, the chunked form of
-``fresco_tpu/diffusion/guidance.py:394-412``.
+On CUDA, ``sign_gram_apply`` runs two kernels.  In bf16 (the main path's
+gram dtype): the wgmma sign kernel of ``fresco_torch/csrc/sign_gram.cu``,
+which writes S as bf16, then ``ops.gemm.bmm`` (``csrc/bmm.cu``) for S·v.
+In float32: the CUDA-core pair of ``sign_gram.cu``.  It raises for any
+other dtype.  On the CPU it runs ``sign_gram_plain``, the chunked form
+of ``fresco_tpu/diffusion/guidance.py:394-412``.
+
+``sign_gram_apply.launches`` counts the calls that launched the sign
+kernel, and ``sign_gram_apply.launches_by_shape`` the same by (hw, c).
 """
 from __future__ import annotations
 
 import torch
 
 from fresco_torch import kernels
+from fresco_torch.ops import gemm
 
 
 def sign_gram_plain(v: torch.Tensor, corr: torch.Tensor, chunk_rows: int = 1024) -> torch.Tensor:
@@ -47,17 +52,22 @@ def _check_cuda_inputs(v: torch.Tensor, corr: torch.Tensor) -> None:
         raise TypeError(f"sign_gram: the CUDA kernels take bfloat16 or float32, got {v.dtype}")
     if not (v.is_contiguous() and corr.is_contiguous()):
         raise ValueError("sign_gram: v and corr must be contiguous")
-    if c % 8:
-        raise ValueError(f"sign_gram: channels {c} must be a multiple of 8")
+    if c % 8 or v.data_ptr() % 16:
+        raise ValueError(f"sign_gram: channels {c} must be a multiple of 8 and v 16-byte aligned")
 
 
 def sign_matrix(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-    """The first CUDA kernel alone: S = sign(v·vᵀ − corr) as int8
-    [B, hw, ldS] (ldS = hw rounded up to 16; the padding columns are 0)."""
+    """The sign kernel alone: S = sign(v·vᵀ − corr).  bf16 v gives bf16 S
+    [B, hw, hw] with entries -1, 0, +1 (what the apply multiplies); float32
+    v gives int8 S [B, hw, ldS], ldS = hw rounded up to 16 with the padding
+    columns 0 (the float32 apply kernel's layout)."""
     _check_cuda_inputs(v, corr)
     b, hw, c = v.shape
-    lds = -(-hw // 16) * 16  # 16-byte rows for the apply kernel's int8 loads
-    s = torch.empty((b, hw, lds), dtype=torch.int8, device=v.device)
+    if v.dtype == torch.bfloat16:
+        lds, s = hw, torch.empty((b, hw, hw), dtype=torch.bfloat16, device=v.device)
+    else:
+        lds = -(-hw // 16) * 16  # 16-byte rows for the float32 apply kernel's int8 loads
+        s = torch.empty((b, hw, lds), dtype=torch.int8, device=v.device)
     kernels.check(kernels.load().fresco_sign_gram_sign(
         v.data_ptr(), corr.data_ptr(), s.data_ptr(), b, hw, c, lds, int(v.dtype == torch.float32),
         torch.cuda.current_stream(v.device).cuda_stream), "sign_gram_sign")
@@ -73,17 +83,26 @@ def sign_gram_apply(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
     if v.device.type == "cpu":
         return sign_gram_plain(v, corr)
     s = sign_matrix(v, corr)
+    kernels.count_launch(sign_gram_apply, (hw, c))
+    return apply_sign(s, v)
+
+
+def apply_sign(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The second kernel alone: S·v, f32 [B, hw, c], for S from
+    ``sign_matrix(v, ...)``.  bf16 runs ``bmm``, float32 the CUDA-core
+    apply kernel (which takes a transposed, zero-padded copy of v)."""
+    if v.dtype == torch.bfloat16:
+        return gemm.bmm(s, v)
+    b, hw, c = v.shape
     lds = s.shape[2]
     vt = torch.zeros((b, c, lds), dtype=v.dtype, device=v.device)
     vt[:, :, :hw] = v.transpose(1, 2)
     out = torch.empty((b, hw, c), dtype=torch.float32, device=v.device)
-    lib = kernels.load()
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    kernels.check(lib.fresco_sign_gram_apply(
-        s.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hw, c, lds, int(v.dtype == torch.float32),
-        stream), "sign_gram_apply")
-    kernels.count_launch(sign_gram_apply)
+    kernels.check(kernels.load().fresco_sign_gram_apply_f32(
+        s.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hw, c, lds,
+        torch.cuda.current_stream(v.device).cuda_stream), "sign_gram_apply_f32")
     return out
 
 
 sign_gram_apply.launches = 0
+sign_gram_apply.launches_by_shape = {}

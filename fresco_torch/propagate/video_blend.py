@@ -9,8 +9,9 @@ histogram blend -> optional Poisson fusion).
 ``blend_video_frames`` is the whole stage in memory: uint8 BGR frames and
 keys in, blended uint8 BGR frames out, on the card unless the caller
 passes a CPU device.  ``blend_video`` wraps it with PNG files read and
-written through Pillow.  Not ported here: the multi-device interval wave
-(``parallel.py``) and writing an mp4.  ``flow_fn`` is required: the
+written through Pillow, and with ``output`` encodes the blended frames as
+an mp4 (``frames_to_video``; the video helpers need OpenCV).  Not ported
+here: the multi-device interval wave (``parallel.py``).  ``flow_fn`` is required: the
 caller supplies the flows (the CLI passes Farneback through OpenCV, or
 the model bundle's GMFlow: ``FrescoPipeline.gmflow_flow_fn``).
 
@@ -336,7 +337,8 @@ def write_bgr(path: str, img: np.ndarray) -> None:
     _codec().fromarray(np.ascontiguousarray(img[..., ::-1])).save(path)
 
 
-def blend_video(base_dir: str, key_ind: list[int], key_dir: str = "keys", *, flow_fn=None,
+def blend_video(base_dir: str, key_ind: list[int], key_dir: str = "keys", output: str | None = None,
+                fps: float = 30, n_proc: int = 8, *, flow_fn=None,
                 poisson: bool = True, use_histogram: bool = True,
                 patch_cfg: PatchMatchConfig = PatchMatchConfig(), seed: int = 0,
                 reuse_synthesis: bool = False, keep_tmp: bool = True,
@@ -344,8 +346,10 @@ def blend_video(base_dir: str, key_ind: list[int], key_dir: str = "keys", *, flo
                 timers_out: dict | None = None) -> str:
     """The reference's file layout around ``blend_video_frames``: reads
     base_dir/video/%04d.png and base_dir/<key_dir>/%04d.png, writes
-    base_dir/blend/%04d.png (caches in base_dir/tmp).  Returns the blend
-    directory."""
+    base_dir/blend/%04d.png (caches in base_dir/tmp) and, given
+    ``output``, those frames as an mp4 at ``fps``.  ``n_proc`` is accepted
+    for the CLI's sake and not used (as in the JAX package).  Returns the
+    blend directory."""
     frames = {i: read_bgr(os.path.join(base_dir, "video", "%04d.png" % i))
               for i in range(key_ind[0], key_ind[-1] + 1)}
     keys = {i: read_bgr(os.path.join(base_dir, key_dir, "%04d.png" % i)) for i in key_ind}
@@ -358,7 +362,71 @@ def blend_video(base_dir: str, key_ind: list[int], key_dir: str = "keys", *, flo
     os.makedirs(blend_dir, exist_ok=True)
     for i, img in out.items():
         write_bgr(os.path.join(blend_dir, "%04d.png" % i), img)
+    if output:
+        frames_to_video(blend_dir, output, fps)
     return blend_dir
+
+
+def _cv2(what: str):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{what} needs OpenCV (cv2), which is not importable here; "
+                          "pass frames in memory to blend_video_frames instead") from e
+    return cv2
+
+
+def video_to_frames(video_path: str, frame_dir: str, filename_pattern: str = "%04d.png",
+                    frame_edit_func=None) -> int:
+    """Decode a video to numbered frames on disk; returns the frame count
+    (reference src/ebsynth/src/video_util.py:8-32)."""
+    cv2 = _cv2(f"decoding {video_path!r}")
+    os.makedirs(frame_dir, exist_ok=True)
+    cap = cv2.VideoCapture(video_path)
+    count = 0
+    while True:
+        ok, img = cap.read()
+        if not ok:
+            break
+        if frame_edit_func is not None:
+            img = frame_edit_func(img)
+        cv2.imwrite(os.path.join(frame_dir, filename_pattern % count), img)
+        count += 1
+    cap.release()
+    return count
+
+
+def get_fps(video_path: str) -> float:
+    """The container's frame rate as OpenCV reports it, 0 or less where it
+    reads none (reference video_util.py:59-64)."""
+    cv2 = _cv2(f"reading {video_path!r}")
+    cap = cv2.VideoCapture(video_path)
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    cap.release()
+    return fps
+
+
+def get_frame_count(video_path: str) -> int:
+    """The container's frame count (reference video_util.py:67-73)."""
+    cv2 = _cv2(f"reading {video_path!r}")
+    cap = cv2.VideoCapture(video_path)
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    return n
+
+
+def frames_to_video(frame_dir: str, output: str, fps: float) -> None:
+    """The .png / .jpg files of ``frame_dir``, in name order, as an mp4v
+    video at ``fps`` (reference src/ebsynth/src/video_util.py:35-56)."""
+    cv2 = _cv2(f"writing {output!r}")
+    files = sorted(f for f in os.listdir(frame_dir) if f.endswith((".png", ".jpg")))
+    if not files:
+        return
+    h, w = cv2.imread(os.path.join(frame_dir, files[0])).shape[:2]
+    vw = cv2.VideoWriter(output, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for f in files:
+        vw.write(cv2.imread(os.path.join(frame_dir, f)))
+    vw.release()
 
 
 def main(argv=None):

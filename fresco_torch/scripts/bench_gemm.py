@@ -1,9 +1,9 @@
 """Microbench of the feature optimization's GEMM shapes on the card.
 
 Counterpart of ``scripts/bench_gemm.py``: the batched bf16 GEMM with
-float32 accumulation and output (``bmm``, CUDA kernel
-``fresco_torch/csrc/bmm.cu``, which replaces the Pallas ``_mm_kernel``)
-timed with CUDA events at the TPU script's rows:
+float32 accumulation and output (``fresco_torch.ops.gemm.bmm``, CUDA
+kernel ``fresco_torch/csrc/bmm.cu``, which replaces the Pallas
+``_mm_kernel``) timed with CUDA events at the TPU script's rows:
 
   * the flat layout  fij,fjd->fid   [8,4096,4096] x [8,4096,1280];
   * the guidance layout fij,kfjc->kfic  with x [2,8,4096,640];
@@ -12,14 +12,12 @@ timed with CUDA events at the TPU script's rows:
 
 each beside ``torch.matmul`` (``torch.bmm`` for the 3-D rows) on the
 same bf16 operands (the library time; its output is bf16), with the
-achieved TFLOP/s and the card's name and power limit.  ``bmm_plain`` is
-the float32 product of the upcast operands (the tests' reference).
+achieved TFLOP/s and the card's name and power limit.
 
     python3 -m fresco_torch.scripts.bench_gemm [--iters N]
 
-``bmm`` on CPU tensors runs ``bmm_plain``; the dense warp and GMFlow stay
-``torch.matmul`` on the pipeline's path, so this kernel serves only this
-entry point.
+On the pipeline's path the kernel is the sign-gram pair's apply; the
+dense warp and GMFlow stay ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -28,39 +26,7 @@ import subprocess
 
 import torch
 
-from fresco_torch import kernels
-
-
-def bmm_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """float32 a @ x of the upcast operands; a [B,M,K] broadcasts over the
-    leading dims of x [..., B, K, N]."""
-    return torch.matmul(a.float(), x.float())
-
-
-def bmm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """a [B,M,K] bf16 @ x [..., B, K, N] bf16 -> float32 [..., B, M, N],
-    accumulated in float32 (``a`` is shared by the leading dims of ``x``)."""
-    if a.ndim != 3 or x.ndim < 3 or x.shape[-3] != a.shape[0] or x.shape[-2] != a.shape[2]:
-        raise ValueError(f"bmm: shapes a{tuple(a.shape)} x{tuple(x.shape)}")
-    if a.device.type == "cpu":
-        return bmm_plain(a, x)
-    if a.device.type != "cuda" or x.device != a.device:
-        raise ValueError(f"bmm: unsupported devices {a.device}, {x.device}")
-    if a.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
-        raise TypeError(f"bmm: the CUDA kernel takes bfloat16, got {a.dtype}, {x.dtype}")
-    a, x = a.contiguous(), x.contiguous()
-    b, m, k = a.shape
-    n = x.shape[-1]
-    nb = x.shape[:-2].numel()
-    out = torch.empty((*x.shape[:-2], m, n), dtype=torch.float32, device=a.device)
-    kernels.check(kernels.load().fresco_bmm(
-        a.data_ptr(), x.data_ptr(), out.data_ptr(), nb, m, n, k, b,
-        torch.cuda.current_stream(a.device).cuda_stream), "bmm")
-    kernels.count_launch(bmm)
-    return out
-
-
-bmm.launches = 0
+from fresco_torch.ops.gemm import bmm
 
 
 def cuda_ms(fn, iters: int = 10) -> float:

@@ -1,7 +1,8 @@
-"""The row-gather and batched-GEMM kernels' report on the GPU: what the
-compiler says of each kernel instantiation (registers, spills, shared
-memory), which global loads and stores and which tensor-core instructions
-their SASS holds, and variants of each timed in turns on the same inputs.
+"""The row-gather, batched-GEMM and sign-gram kernels' report on the GPU:
+what the compiler says of each kernel instantiation (registers, spills,
+shared memory), which global loads and stores and which tensor-core
+instructions their SASS holds, and variants of each timed in turns on the
+same inputs.
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -15,8 +16,11 @@ checkout (for example an unpacked parent commit) as one more variant of
 each kernel, named after the directory; ``--select`` keeps the variants
 whose name holds TEXT.  Each variant is timed with CUDA events over many
 launches, in the order base, variants..., base, and held against
-index_select (bit for bit) or the float32 product, except the variants
-marked timing only, which leave out part of the work on purpose.
+index_select (bit for bit), the float32 product or the plain sign (flips
+only at near ties), except the variants marked timing only, which leave
+out part of the work on purpose.  For sign-gram a parent tree's pair (its
+own sign and apply kernels, int8 S) is timed beside this tree's pair (the
+sign kernel, then bmm), at the main path's five bf16 shapes.
 """
 from __future__ import annotations
 
@@ -98,6 +102,19 @@ _BMM_DIRECT = (
     "  }\n"
     "  return;\n")
 _BMM_FIRST = _BMM_NO_SWIZZLE + [(_BMM_TILE, "constexpr int BN = 256, STAGES = 4;")]
+_SIGN_TILE = "constexpr int BM = 128, BN = 256, BK = 64;"
+_SIGN_RING = "constexpr int STAGES = 3, INFLIGHT = 0, BLOCKS_PER_SM = 1;"
+_SIGN_C_LOADS = [("  if (steps > 0) load_c_of(blockIdx.x);", "  if (false) load_c_of(blockIdx.x);"),
+                 ("    if (tile < tiles) load_c_of(tile);", "")]
+_SIGN_STORE = "      if (gm >= p.hw || gn >= p.hw) continue;\n      __nv_bfloat16* dst"
+_SIGN_REFILL = ("    if (q + AHEAD < steps) load_step((q + AHEAD) % STAGES);\n"
+                "    cp_async_commit();  // an empty group keeps the count in step (the next C tile joins this group)\n")
+_SIGN_WGMMA = "    const uint32_t a_addr = smem_addr + (q % STAGES) * STAGE_BYTES + wg * 64 * 128;\n"
+_SIGN_GRID = "  const int grid = static_cast<int>(tiles < (long long)n_sm * BLOCKS_PER_SM ? tiles : (long long)n_sm * BLOCKS_PER_SM);"
+_SIGN_NO_WGMMA = [("      wgmma_ss<0>(acc, ", "      if (false) wgmma_ss<0>(acc, ")]
+_SIGN_128 = (_SIGN_TILE, "constexpr int BM = 128, BN = 128, BK = 64;")
+_SIGN_TWO_BLOCKS = [_SIGN_128, (_SIGN_RING, "constexpr int STAGES = 2, INFLIGHT = 0, BLOCKS_PER_SM = 2;")]
+_SIGN_REFILL_FIRST = [(_SIGN_REFILL, ""), (_SIGN_WGMMA, _SIGN_REFILL + _SIGN_WGMMA)]
 # a variant whose name starts with TIMING_ONLY computes a wrong product on
 # purpose (a part of the work left out) and is timed, not checked
 TIMING_ONLY = "timing only: "
@@ -124,6 +141,22 @@ BMM_VARIANTS = {
     "192x256 (3 warpgroups), 4 stages": [("constexpr int BM = 128, BK = 64, NTHREADS = 256;",
                                           "constexpr int BM = 192, BK = 64, NTHREADS = 384;"),
                                          (_BMM_TILE, "constexpr int BN = 256, STAGES = 4;")],
+}
+SIGN_VARIANTS = {
+    "128x128, 2 blocks a SM, 2 stages": _SIGN_TWO_BLOCKS,
+    "128x128, 2 blocks a SM, 2 stages, refill before the wgmma": _SIGN_TWO_BLOCKS + _SIGN_REFILL_FIRST,
+    "128x128, 1 block a SM, 5 stages, one wgmma group in flight": [
+        _SIGN_128, (_SIGN_RING, "constexpr int STAGES = 5, INFLIGHT = 1, BLOCKS_PER_SM = 1;")],
+    "256x128 (4 warpgroups)": [(_SIGN_TILE, "constexpr int BM = 256, BN = 128, BK = 64;")],
+    "refill before the wgmma": _SIGN_REFILL_FIRST,
+    "one wgmma group in flight (1 tile ahead)": [
+        (_SIGN_RING, "constexpr int STAGES = 3, INFLIGHT = 1, BLOCKS_PER_SM = 1;")],
+    "not persistent (one tile a block)": [(_SIGN_GRID, "  const int grid = static_cast<int>(tiles);")],
+    TIMING_ONLY + "no C load": _SIGN_C_LOADS,
+    TIMING_ONLY + "no C load, no S store": _SIGN_C_LOADS + [
+        (_SIGN_STORE, _SIGN_STORE.replace("if (gm >= p.hw || gn >= p.hw)", "if (true)"))],
+    TIMING_ONLY + "no wgmma": _SIGN_NO_WGMMA,
+    TIMING_ONLY + "128x128, 2 blocks a SM, no wgmma": _SIGN_TWO_BLOCKS + _SIGN_NO_WGMMA,
 }
 
 
@@ -209,8 +242,9 @@ def variant_source(src: str, subs: list[tuple[str, str]], tmp: str, tag: str) ->
     return vsrc
 
 
-def build_all(srcs: dict[str, str], entry: str) -> dict:
-    """{tag: bound C entry point}, one nvcc per source, all at once."""
+def build_all(srcs: dict[str, str], entry: str, libs_out: dict | None = None) -> dict:
+    """{tag: bound C entry point}, one nvcc per source, all at once; the
+    loaded libraries go into ``libs_out`` by tag."""
     procs = {}
     for tag, vsrc in srcs.items():
         lib = os.path.join(os.path.dirname(vsrc), "lib.so")
@@ -221,7 +255,10 @@ def build_all(srcs: dict[str, str], entry: str) -> dict:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             cs.fail(f"variant {tag} failed to build:\n{out}")
-        libs[tag] = bind(ctypes.CDLL(lib), entry)
+        cdll = ctypes.CDLL(lib)
+        if libs_out is not None:
+            libs_out[tag] = cdll
+        libs[tag] = bind(cdll, entry)
     return libs
 
 
@@ -241,7 +278,7 @@ def timed_turns(fns: dict, iters: int) -> dict:
     return out
 
 
-def gather_variants(libs: dict, dev) -> None:
+def gather_variants(libs: dict, dev, parents: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     n = cs.PROP_HW[0] * cs.PROP_HW[1]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -269,13 +306,14 @@ def gather_variants(libs: dict, dev) -> None:
                   + f" ms ({moved / min(ms) / 1e6:.0f} GB/s of sectors moved)")
 
 
-def bmm_variants(libs: dict, dev) -> None:
+def bmm_variants(libs: dict, dev, parents: dict) -> None:
+    from fresco_torch.ops import gemm
     from fresco_torch.scripts import bench_gemm as bg
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     cases = bg.rows(torch.Generator(device=dev).manual_seed(0), dev)
     for name, a, x in cases:
-        ref = bg.bmm_plain(a, x)
+        ref = gemm.bmm_plain(a, x)
         b, m, k = a.shape
         n = x.shape[-1]
         nb = x.shape[:-2].numel()
@@ -299,12 +337,77 @@ def bmm_variants(libs: dict, dev) -> None:
         del ref
 
 
+def sign_variants(libs: dict, dev, parents: dict) -> None:
+    """The sign kernel's variants in turns at the five bf16 shapes of phase
+    3, each S held against the plain sign (a flip only where |G - C| is
+    under GRAM_TIE); then this tree's pair (sign kernel + bmm) beside each
+    parent's pair as its wrapper ran it (where the parent's library has
+    fresco_sign_gram_apply: its sign and apply kernels, int8 S and a
+    transposed copy of v)."""
+    from fresco_torch.ops import gemm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    b = 16
+    for hw, c in ((64, 1280), (256, 1280), (1024, 1280), (4096, 640), (1280, 640)):
+        vr = torch.nn.functional.normalize(torch.randn(b, hw, c, generator=gen, device=dev), dim=-1)
+        v = torch.nn.functional.normalize(vr + 0.3 * torch.randn(b, hw, c, generator=gen, device=dev), dim=-1)
+        v = v.to(torch.bfloat16).contiguous()
+        corr = torch.matmul(vr.to(torch.bfloat16), vr.to(torch.bfloat16).transpose(1, 2)).contiguous()
+        d = torch.matmul(v.float(), v.float().transpose(1, 2)) - corr.float()
+        fns, outs = {}, {}
+        for tag, fn in libs.items():
+            if tag in parents:
+                continue
+            s = torch.empty(b, hw, hw, dtype=torch.bfloat16, device=dev)
+
+            def call(fn=fn, s=s):
+                kernels.check(fn(v.data_ptr(), corr.data_ptr(), s.data_ptr(), b, hw, c, hw, 0, stream), "sign")
+
+            call()
+            torch.cuda.synchronize()
+            far = ((s.float() != torch.sign(d)) & (d.abs() > cs.GRAM_TIE)).sum().item()
+            if far and not tag.startswith(TIMING_ONLY):
+                cs.fail(f"sign variant {tag} at hw={hw} c={c}: {far} signs flipped away from a tie")
+            fns[tag], outs[tag] = call, s
+        for tag, ms in timed_turns(fns, 20).items():
+            print(f"sign variant hw={hw} c={c} {tag:50s}: " + " / ".join(f"{m_:.4f}" for m_ in ms) + " ms")
+        s = outs["this tree"]
+        pairs = {"this tree (sign kernel + bmm)": lambda: (fns["this tree"](), gemm.bmm(s, v))}
+        for tag, lib in parents.items():
+            apply = getattr(lib, "fresco_sign_gram_apply", None)
+            if apply is None:  # a tree with this one's interface: its sign kernel, then bmm
+                sp = torch.empty_like(s)
+                pairs[f"{tag} (its pair)"] = lambda sign=libs[tag], sp=sp: (kernels.check(sign(
+                    v.data_ptr(), corr.data_ptr(), sp.data_ptr(), b, hw, c, hw, 0, stream), "sign"), gemm.bmm(sp, v))
+                continue
+            # the int8 interface: S as int8, then its own apply kernel on a transposed copy of v
+            lds = -(-hw // 16) * 16
+            s8 = torch.empty(b, hw, lds, dtype=torch.int8, device=dev)
+            out = torch.empty(b, hw, c, dtype=torch.float32, device=dev)
+            apply.argtypes, apply.restype = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int
+
+            def parent_pair(sign=libs[tag], apply=apply, s8=s8, out=out, lds=lds):
+                kernels.check(sign(v.data_ptr(), corr.data_ptr(), s8.data_ptr(), b, hw, c, lds, 0, stream), "sign")
+                vt = torch.zeros(b, c, lds, dtype=v.dtype, device=dev)
+                vt[:, :, :hw] = v.transpose(1, 2)
+                kernels.check(apply(s8.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hw, c, lds, 0, stream), "apply")
+
+            pairs[f"{tag} (its pair)"] = parent_pair
+        pairs["cuBLAS products, no sign"] = lambda: (torch.matmul(v, v.transpose(1, 2)), torch.matmul(s, v))
+        for tag, ms in timed_turns(pairs, 10).items():
+            print(f"sign pair hw={hw} c={c} {tag:40s}: " + " / ".join(f"{m_:.4f}" for m_ in ms) + " ms")
+        del vr, v, corr, d, fns, outs, pairs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", action="append", default=[],
                     help="another checkout whose csrc is timed beside this one (may be repeated)")
     ap.add_argument("--no-variants", action="store_true")
     ap.add_argument("--select", default="", help="only the variants whose name holds this string")
+    ap.add_argument("--kernel", action="append", default=[], choices=["row_gather", "bmm", "sign_gram"],
+                    help="report only this kernel (may be repeated; default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False: this report needs an NVIDIA GPU")
@@ -314,7 +417,10 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         for kern, variants, entry, run in (("row_gather", GATHER_VARIANTS, "fresco_row_gather", gather_variants),
-                                           ("bmm", BMM_VARIANTS, "fresco_bmm", bmm_variants)):
+                                           ("bmm", BMM_VARIANTS, "fresco_bmm", bmm_variants),
+                                           ("sign_gram", SIGN_VARIANTS, "fresco_sign_gram_sign", sign_variants)):
+            if args.kernel and kern not in args.kernel:
+                continue
             src = os.path.join(kernels.CSRC, f"{kern}.cu")
             cubin, err = compile_cubin(src, tmp)
             ptxas_report(src, err)
@@ -322,17 +428,20 @@ def main() -> None:
             if args.no_variants:
                 continue
             srcs = {"this tree": variant_source(src, [], tmp, f"{kern}_base")}
+            parent_tags = []
             for i, tree in enumerate(args.parent):
                 psrc = os.path.join(tree, "fresco_torch", "csrc", f"{kern}.cu")
                 if not os.path.exists(psrc):
                     print(f"{kern}: {tree} has no {kern}.cu; skipped")
                     continue
-                srcs[os.path.basename(os.path.normpath(tree))] = variant_source(psrc, [], tmp, f"{kern}_tree{i}")
+                parent_tags.append(os.path.basename(os.path.normpath(tree)))
+                srcs[parent_tags[-1]] = variant_source(psrc, [], tmp, f"{kern}_tree{i}")
             for i, (tag, subs) in enumerate(variants.items()):
                 if args.select in tag:
                     srcs[tag] = variant_source(src, subs, tmp, f"{kern}_v{i}")
-            libs = build_all(srcs, entry)
-            run(libs, dev)
+            cdlls: dict = {}
+            libs = build_all(srcs, entry, cdlls)
+            run(libs, dev, {t: cdlls[t] for t in parent_tags})
 
 
 if __name__ == "__main__":

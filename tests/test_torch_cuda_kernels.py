@@ -14,7 +14,8 @@ unit-variance inputs — the kernel rounds P to bf16 and writes bf16, the
 plain version is float32 math on the same bf16 inputs; a skipped or
 doubled key tile moves either far more.  Sign-gram (bf16 and float32):
 C is built with a margin of ~1 around every sign, so both compute the
-same S and the f32 outputs agree to 1e-5 relative Frobenius.  Batched
+same S (in bf16, S itself is compared bit for bit) and the f32 outputs
+agree to 1e-5 relative Frobenius.  Batched
 GEMM: float32 sums of exact bf16 products in two orders, 1e-5 relative
 Frobenius, at ragged shapes (M, N, K that no tile divides, K and N not
 multiples of 8) and in the guidance layout.
@@ -125,6 +126,50 @@ def test_sign_gram_kernel_matches_plain(cuda_device, b, hw, c, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c,c_offset", [
+    (1, 72, 8, 0), (16, 72, 640, 0),          # under one tile
+    (1, 200, 1280, 0), (16, 200, 8, 0),       # ragged tiles
+    (1, 100, 640, 0), (16, 100, 1280, 0),     # hw % 8 != 0: element-by-element C / S and bmm's element path
+    (2, 256, 640, 4),                         # C 8 but not 16 bytes aligned: C and S element by element
+    (1, 1280, 640, 0), (16, 1280, 8, 0),
+    (16, 4096, 640, 0), (1, 4096, 1280, 0),   # the main path's largest shapes
+])
+def test_sign_gram_bf16_pair(cuda_device, b, hw, c, c_offset):
+    """The bf16 pair: the wgmma sign kernel writes S as bf16 [B, hw, hw] in
+    {-1, 0, +1}, equal to the plain sign (C keeps a margin of ~1 around
+    every sign, so there is no tie), and the apply runs on bmm."""
+    from fresco_torch.ops import gram_kernel as gk
+    from fresco_torch.ops.gemm import bmm
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    v = torch.nn.functional.normalize(torch.randn(b, hw, c, device=cuda_device, generator=g), dim=-1)
+    v = v.to(torch.bfloat16)
+    sgn = torch.where(torch.rand(b, hw, hw, device=cuda_device, generator=g) > 0.5, 1.0, -1.0)
+    corr_vals = (torch.matmul(v.float(), v.float().transpose(1, 2)) - sgn).to(torch.bfloat16)
+    buf = torch.empty(c_offset + corr_vals.numel(), dtype=torch.bfloat16, device=cuda_device)
+    corr = buf[c_offset:].view(b, hw, hw)
+    corr.copy_(corr_vals)
+    assert corr.is_contiguous() and corr.data_ptr() % 16 == 2 * c_offset % 16
+
+    s = gk.sign_matrix(v, corr)
+    torch.cuda.synchronize()
+    assert s.dtype == torch.bfloat16 and s.shape == (b, hw, hw)
+    assert bool(((s == -1) | (s == 0) | (s == 1)).all())
+    plain_s = torch.sign(torch.matmul(v.float(), v.float().transpose(1, 2)) - corr.float())
+    assert torch.equal(s.float(), plain_s)
+
+    before, before_bmm = gk.sign_gram_apply.launches, bmm.launches
+    before_shape = gk.sign_gram_apply.launches_by_shape.get((hw, c), 0)
+    out = gk.sign_gram_apply(v, corr)
+    torch.cuda.synchronize()
+    assert gk.sign_gram_apply.launches == before + 1 and bmm.launches == before_bmm + 1
+    assert gk.sign_gram_apply.launches_by_shape[(hw, c)] == before_shape + 1
+    ref = gk.sign_gram_plain(v, corr)
+    assert out.dtype == torch.float32 and out.shape == (b, hw, c)
+    assert ((out - ref).norm() / ref.norm()).item() < 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,w,k,base", [
     (torch.float32, 75, 777, 0), (torch.bfloat16, 384, 777, 0), (torch.bfloat16, 3, 777, 0),
     (torch.float32, 8, 777, 0), (torch.uint8, 5, 777, 0),
@@ -219,7 +264,7 @@ def test_patch_eval_kernel_matches_plain(cuda_device, c, patch, mode):
                                       ((1, 1000, 264), 300),     # a ragged last k-tile after a full ring
                                       ((2, 133, 45), 77)])       # K and N not multiples of 8
 def test_bmm_kernel_matches_plain(cuda_device, xshape, m):
-    from fresco_torch.scripts.bench_gemm import bmm, bmm_plain
+    from fresco_torch.ops.gemm import bmm, bmm_plain
 
     g = torch.Generator(device=cuda_device).manual_seed(0)
     b, k = xshape[-3], xshape[-2]

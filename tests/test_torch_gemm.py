@@ -1,4 +1,5 @@
-"""The batched-GEMM microbench's wrapper on the CPU, where ``bmm`` is its
+"""The batched-GEMM wrapper (``fresco_torch.ops.gemm``; the sign-gram
+pair's apply and the microbench's kernel) on the CPU, where ``bmm`` is its
 plain version, against the plain reference the TPU script times
 (``jnp.einsum(..., preferred_element_type=float32)`` on bf16 operands;
 its ``pallas_bmm`` uses TPU-only VMEM scratch and has no interpret path).
@@ -11,7 +12,8 @@ import torch
 
 import jax.numpy as jnp
 
-from fresco_torch.scripts.bench_gemm import bmm, bmm_plain, flops
+from fresco_torch.ops.gemm import bmm, bmm_plain
+from fresco_torch.scripts.bench_gemm import flops
 
 
 def _bf16(rng, shape):
@@ -68,3 +70,16 @@ def test_count_launch_is_exact_across_threads():
     with ThreadPoolExecutor(max_workers=8) as ex:
         list(ex.map(bump, range(8)))
     assert wrapper.launches == 8 * 2000
+
+
+def test_count_launch_by_shape():
+    from fresco_torch import kernels
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.launches_by_shape = 0, {}
+    for shape in [(64, 1280), (4096, 640), (64, 1280)]:
+        kernels.count_launch(wrapper, shape)
+    kernels.count_launch(wrapper)
+    assert wrapper.launches == 4 and wrapper.launches_by_shape == {(64, 1280): 2, (4096, 640): 1}

@@ -49,3 +49,19 @@ def test_ragged_hw_matches_chunked_path(rng, hw, chunk):
 def test_wrapper_checks_shapes():
     with pytest.raises(ValueError):
         sign_gram_apply(torch.zeros(1, 8, 4), torch.zeros(1, 8, 7))
+
+
+def test_bf16_matches_pallas_interpret(rng):
+    """The main path's gram dtype: bf16 v and C through the port's wrapper
+    (its plain version on the CPU, no launch counted) and the Pallas
+    kernel in interpret mode."""
+    v, corr, _ = _case(rng, 2, 128, 32)
+    vt = torch.from_numpy(v).to(torch.bfloat16)
+    ct = torch.from_numpy(corr).to(torch.bfloat16)
+    ref = np.asarray(jgram.sign_gram_apply(jnp.asarray(vt.float().numpy(), jnp.bfloat16),
+                                           jnp.asarray(ct.float().numpy(), jnp.bfloat16), interpret=True))
+    before, by_shape = sign_gram_apply.launches, dict(sign_gram_apply.launches_by_shape)
+    out = sign_gram_apply(vt, ct)
+    assert sign_gram_apply.launches == before and sign_gram_apply.launches_by_shape == by_shape
+    assert out.dtype == torch.float32 and out.shape == (2, 128, 32)
+    np.testing.assert_allclose(out.numpy(), ref.astype(np.float32), atol=1e-3, rtol=1e-4)
