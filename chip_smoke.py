@@ -45,13 +45,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                sector bound;
   7. patch_eval: the candidate-evaluation kernel against its plain version
                at 512x640, C = 15: 15 and 20 candidates, a ragged active
-               set, patch 3; the NNF may differ only at near ties;
+               set, patch 3; then at each coarser level of the interval's
+               pyramid (256x320 down to 16x20) with its candidates, and the
+               one-candidate set; the NNF may differ only at near ties;
+               every case timed;
   8. propagate: a 64x80 synthesize and 11-frame interval on the card and on
                the CPU with the same draws, compared; then one interval of
                11 frames at 512x640 through blend_video_frames (default
                PatchMatchConfig, histogram blend, Poisson fusion): PSNR
                against the known truth above its floor, and both new
-               kernels' launch counters must move;
+               kernels' launch counters must move; patch_eval's launches
+               are printed by (height, width, candidates) beside phase 7's
+               time at each, and their sum;
   9. gemm    : the batched-GEMM microbench (fresco_torch.scripts.bench_gemm,
                its four rows beside torch's bf16 product), then the kernel
                against its float32 plain version at those rows and at the
@@ -71,14 +76,17 @@ Phases (each prints its own lines; any failure exits non-zero):
                carried, then blend_video_frames on the clip's known flows
                (GMFlow's, from random weights, are noise).  All five
                main-path kernels' launch counters must move (bmm as the
-               sign-gram pair's apply); the keyframes
+               sign-gram pair's apply); sign-gram and patch_eval launches
+               are printed by shape beside their times (patch_eval's
+               512x512 pyramid timed there); the keyframes
                must pass through propagation unchanged.  Phases are
                synchronized, so the breakdown is device time.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
-and the library call's time where one computes the same function.  The
-line before the last is the kernel table as JSON; the last line is
+and the library call's time where one computes the same function
+(patch_eval's also ``kernel_ms``, its kernel alone queued behind a
+sleep, beside ``ms``, the wrapper call).  The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -152,6 +160,33 @@ def timed(fn) -> float:
     calls read up to 2x apart over 10 launches)."""
     ms = cuda_ms(fn)
     return cuda_ms(fn, iters=200) if ms < 0.5 else ms
+
+
+SLEEP_CYCLES = 50_000_000  # ~25 ms of an SM's clock: longer than the host takes to queue a timed run
+
+
+def queued_ms(launch, iters: int = 50) -> float:
+    """Mean device milliseconds per call of ``launch`` (which must only
+    enqueue work), after one warm-up call, over ``iters`` calls queued
+    behind a sleeping kernel: the host has queued them all before the
+    first runs, so the time is the calls' own back to back on the device
+    (launch gaps included) and none of the host's.  Fails if the host
+    took longer to queue them than the sleep lasted."""
+    launch()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    ev[1].record()
+    for _ in range(iters):
+        launch()
+    ev[2].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        fail(f"queued_ms: queueing took {host_ms:.2f} ms, longer than the sleep ({ev[0].elapsed_time(ev[1]):.2f})")
+    return ev[1].elapsed_time(ev[2]) / iters
 
 
 def plain_attention_chunked(q, k, v, mask, q_chunk: int):
@@ -772,57 +807,159 @@ def _check_patch_eval(name, args, patch, out, ref):
     return max_err
 
 
+def _patch_eval_case(seed: int, dev, hw, seeded: bool, shifts, radii, patch: int = 5, compact: bool = False):
+    """One case's inputs: ``_patch_inputs`` plus the random deltas of
+    ``radii`` and, with ``compact``, a ragged active set; returns (src, tgt,
+    weights, omega, nnf, deltas, act, mask, n_pix)."""
+    from fresco_torch.propagate.patch_eval import active_set
+
+    h, w = hw
+    src, tgt, weights, omega, nnf, g = _patch_inputs(seed, dev, hw, seeded)
+    if patch == 3:
+        omega = None
+    deltas = None
+    if radii:
+        deltas = torch.stack([torch.randint(-r, r + 1, (h, w, 2), generator=g, device=dev, dtype=torch.int32)
+                              for r in radii])
+    act, mask, n_pix = None, None, h * w
+    if compact:
+        blobs = torch.rand(h // 16, w // 16, generator=g, device=dev) > 0.9
+        blobs[0, 1] = True
+        mask = torch.nn.functional.interpolate(blobs[None, None].float(), size=(h, w))[0, 0] > 0
+        mask &= torch.rand(h, w, generator=g, device=dev) > 0.3
+        act, n_pix = active_set(mask), int(mask.sum())
+    return src, tgt, weights, omega, nnf, deltas, act, mask, n_pix
+
+
+def _patch_eval_shape_args(seed: int, dev, h: int, w: int, n_cand: int):
+    """The arguments of a main-path call at (h, w, n_cand) (the one-candidate
+    set, 15 or 20 candidates) on a full grid, the NNF and errors of 15 or
+    20 candidates being the one-candidate call's, as in phase 7; None for
+    another count."""
+    from fresco_torch.propagate.patch_eval import patch_eval
+    from fresco_torch.propagate.patchmatch import level_candidates
+
+    if n_cand not in (1, 15, 20):
+        return None
+    seeded = n_cand != 20
+    shifts, radii = level_candidates(h, w, seeded) if n_cand > 1 else ((), [])
+    src, tgt, weights, omega, nnf, deltas, *_ = _patch_eval_case(seed, dev, (h, w), seeded, shifts, radii)
+    if n_cand == 1:
+        return (src, tgt, weights, omega, nnf, None, (), None, None)
+    nnf0, e0 = patch_eval(src, tgt, weights, omega, nnf)
+    return (src, tgt, weights, omega, nnf0, e0, shifts, deltas, None)
+
+
+def patch_eval_launcher(args, patch: int = 5, fn=None):
+    """A call that launches the patch_eval kernel alone (``fn``, default
+    this tree's C entry point) on ``patch_eval``'s arguments ``args``, laid
+    out once; its outputs are ``.outputs``."""
+    from fresco_torch import kernels
+    from fresco_torch.propagate.patch_eval import _kernel_args
+
+    c_args, nnf_out, e_out, _, keep = _kernel_args(*args, patch=patch)
+    fn = fn or kernels.load().fresco_patch_eval
+
+    def launch():
+        kernels.check(fn(*c_args), "patch_eval")
+
+    launch.outputs, launch.keep = (nnf_out, e_out), keep
+    return launch
+
+
+def patch_eval_by_shape(label: str, counts: dict, shape_ms: dict, seed: int, dev) -> None:
+    """Print the patch_eval launches of a run by (th, tw, candidates), each
+    beside the wrapper call's and the kernel's time at that shape (phase
+    7's, else timed here on a full-grid call of that shape), the products
+    and their sums.  A compacted launch runs only its listed tiles, so a
+    sum is the run's time with every launch over its whole grid
+    (profile_propagate.py measures the interval's own)."""
+    from fresco_torch.propagate.patch_eval import patch_eval
+
+    parts, total_call, total_kernel = [], 0.0, 0.0
+    for (h, w, n), k in sorted(counts.items()):
+        where = "phase 7"
+        if (h, w, n) not in shape_ms:
+            args = _patch_eval_shape_args(seed, dev, h, w, n)
+            if args is None:
+                parts.append(f"{h}x{w} {n} cand: {k} launches (no time at this shape)")
+                continue
+            shape_ms[(h, w, n)] = (timed(lambda: patch_eval(*args)), queued_ms(patch_eval_launcher(args)))
+            where = "timed here"
+        call_ms, kernel_ms = shape_ms[(h, w, n)]
+        total_call += k * call_ms
+        total_kernel += k * kernel_ms
+        parts.append(f"{h}x{w} {n} cand: {k} x {call_ms:.4f} ms a call / {kernel_ms:.4f} ms the kernel ({where})"
+                     f" = {k * call_ms:.1f} / {k * kernel_ms:.1f} ms")
+    print(f"{label} patch_eval by shape: " + "; ".join(parts)
+          + f"; total {total_call:.1f} ms of wrapper calls, {total_kernel:.1f} ms of kernel time "
+          f"({sum(counts.values())} launches, each at its full-grid time)")
+
+
 def phase_patch_eval(seed: int, dev):
     """The candidate-evaluation kernel against its plain version at the
     finest level (512x640, C = 15): 15 candidates at a seeded level (shifts
     1,2,4 and 3 random), 20 at an unseeded one (shifts 1,2,4,8 and 4
-    random); a ragged active set (compaction); patch 3 without omega."""
-    from fresco_torch.propagate.patch_eval import active_set, patch_eval, patch_eval_plain
+    random); a ragged active set (compaction); patch 3 without omega; then
+    each coarser level of the interval's pyramid with the candidates
+    ``_synthesize_level`` runs there, and the one-candidate set (the current
+    match's error) at 512x640.  Each case's ``ms`` is the wrapper call
+    (``timed``, as every kernel's row), ``kernel_ms`` the kernel alone
+    queued behind a sleep (``queued_ms``: none of the wrapper's layout work
+    and none of the host's time).  Returns the kernel table rows by name,
+    the largest |de| and (wrapper ms, kernel ms) by (h, w, candidates)."""
+    from fresco_torch.propagate import patchmatch as pm
+    from fresco_torch.propagate.patch_eval import patch_eval, patch_eval_plain
 
-    h, w = PROP_HW
-    rows, max_err = {}, 0.0
-    cases = [("seeded 15 cand", True, (1, 2, 4), [160, 80, 40], 5, False),
-             ("unseeded 20 cand", False, (1, 2, 4, 8), [320, 160, 80, 40], 5, False),
-             ("compact ragged 15 cand", True, (1, 2, 4), [160, 80, 40], 5, True),
-             ("patch 3 15 cand", True, (1, 2, 4), [160, 80, 40], 3, False)]
-    for name, seeded, shifts, radii, patch, compact in cases:
-        src, tgt, weights, omega, nnf, g = _patch_inputs(seed, dev, (h, w), seeded)
-        if patch == 3:
-            omega = None
-        deltas = torch.stack([torch.randint(-r, r + 1, (h, w, 2), generator=g, device=dev, dtype=torch.int32)
-                              for r in radii])
-        act, n_pix = None, h * w
-        if compact:
-            blobs = torch.rand(h // 16, w // 16, generator=g, device=dev) > 0.9
-            blobs[0, 1] = True
-            mask = torch.nn.functional.interpolate(blobs[None, None].float(), size=(h, w))[0, 0] > 0
-            mask &= torch.rand(h, w, generator=g, device=dev) > 0.3
-            act, n_pix = active_set(mask), int(mask.sum())
+    rows, shape_ms, max_err = {}, {}, 0.0
+    cases = [("seeded 15 cand", PROP_HW, True, (1, 2, 4), [160, 80, 40], 5, False),
+             ("unseeded 20 cand", PROP_HW, False, (1, 2, 4, 8), [320, 160, 80, 40], 5, False),
+             ("compact ragged 15 cand", PROP_HW, True, (1, 2, 4), [160, 80, 40], 5, True),
+             ("patch 3 15 cand", PROP_HW, True, (1, 2, 4), [160, 80, 40], 3, False)]
+    levels = [t for t, _ in pm._pyramid_sizes(*PROP_HW, *PROP_HW, 5, -1)]  # coarse -> fine
+    for i, (h, w) in enumerate(levels[:-1][::-1]):
+        seeded = i < len(levels) - 2
+        shifts, radii = pm.level_candidates(h, w, seeded)
+        cases.append((f"level {h}x{w} {4 * len(shifts) + len(radii)} cand", (h, w), seeded, shifts, radii, 5, False))
+    cases.append(("one candidate", PROP_HW, True, (), [], 5, False))
+    for name, (h, w), seeded, shifts, radii, patch, compact in cases:
+        src, tgt, weights, omega, nnf, deltas, act, mask, n_pix = _patch_eval_case(
+            seed, dev, (h, w), seeded, shifts, radii, patch, compact)
         # the one-candidate set first: the current match's error (be0)
         be0_args = (src, tgt, weights, omega, nnf, None, (), None, act)
         out0 = patch_eval(*be0_args, patch=patch)
         torch.cuda.synchronize()
         max_err = max(max_err, _check_patch_eval(name + " (be0)", be0_args, patch, out0,
                                                  patch_eval_plain(*be0_args, patch=patch)))
-        args = (src, tgt, weights, omega, out0[0], out0[1], shifts, deltas, act)
-        out = patch_eval(*args, patch=patch)
-        torch.cuda.synchronize()
-        ref = patch_eval_plain(*args, patch=patch)
-        max_err = max(max_err, _check_patch_eval(name, args, patch, out, ref))
-        if compact and not (torch.equal(out[0][~mask], out0[0][~mask]) and torch.equal(out[1][~mask], out0[1][~mask])):
-            fail("patch_eval compact: a frozen pixel changed")
-        n_cand = 4 * len(shifts) + len(radii)
-        ms = cuda_ms(lambda: patch_eval(*args, patch=patch))
+        args = be0_args
+        if shifts:
+            args = (src, tgt, weights, omega, out0[0], out0[1], shifts, deltas, act)
+            out = patch_eval(*args, patch=patch)
+            torch.cuda.synchronize()
+            ref = patch_eval_plain(*args, patch=patch)
+            max_err = max(max_err, _check_patch_eval(name, args, patch, out, ref))
+            if compact and not (torch.equal(out[0][~mask], out0[0][~mask])
+                                and torch.equal(out[1][~mask], out0[1][~mask])):
+                fail("patch_eval compact: a frozen pixel changed")
+        n_cand = max(4 * len(shifts) + len(radii), 1)
+        ms = timed(lambda: patch_eval(*args, patch=patch))
+        call_queued_ms = queued_ms(lambda: patch_eval(*args, patch=patch), iters=20)
+        kernel_ms = queued_ms(patch_eval_launcher(args, patch))
         plain_ms = cuda_ms(lambda: patch_eval_plain(*args, patch=patch), iters=2)
         c = src.shape[-1]
         n_bytes = (src.numel() + tgt.numel()) * 2 + (0 if omega is None else omega.numel() * 2) \
-            + h * w * (8 + 4) + deltas.numel() * 4 + n_pix * (8 + 4)
+            + h * w * (8 + (4 if shifts else 0)) + (0 if deltas is None else deltas.numel() * 4) + n_pix * (8 + 4)
         bnd = bound(n_bytes, n_pix * n_cand * patch * patch * c * 4, F32_CUDA_CORE_FLOPS)
         ns_k, ns_p = ms * 1e6 / (n_pix * n_cand), plain_ms * 1e6 / (n_pix * n_cand)
-        print(f"patch_eval {name}: {n_pix} pixels x {n_cand} candidates, kernel {ms:.4f} ms ({ns_k:.4f} ns per "
-              f"candidate), plain {plain_ms:.3f} ms ({ns_p:.3f} ns), bound {bnd[0]:.4f} ms ({bnd[1]}), library none")
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
-    return rows, max_err
+        print(f"patch_eval {name}: {h}x{w}, {n_pix} pixels x {n_cand} candidates, kernel {ms:.4f} ms a wrapper "
+              f"call ({ns_k:.4f} ns per candidate; its device work queued {call_queued_ms:.4f} ms, the kernel "
+              f"alone queued {kernel_ms:.4f} ms), plain {plain_ms:.3f} ms ({ns_p:.3f} ns), bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), library none")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                          kernel_ms=kernel_ms)
+        if patch == 5 and not compact:
+            shape_ms.setdefault((h, w, n_cand), (ms, kernel_ms))
+    return rows, max_err, shape_ms
 
 
 def _psnr(out: dict, truth: list, idx) -> float:
@@ -836,10 +973,11 @@ def _psnr(out: dict, truth: list, idx) -> float:
 PROP_PSNR_FLOOR = 36.0
 
 
-def phase_propagate(seed: int, dev):
+def phase_propagate(seed: int, dev, pe_shape_ms: dict):
     """One interval of 11 frames (keys 0 and 10) at 512x640 through the
     port's in-memory blend_video_frames, default PatchMatchConfig,
-    histogram blend and Poisson fusion."""
+    histogram blend and Poisson fusion; patch_eval's launches by shape
+    beside phase 7's times."""
     from fresco_torch.propagate.gather import gather_rows
     from fresco_torch.propagate.patch_eval import patch_eval
     from fresco_torch.propagate.video_blend import blend_video_frames
@@ -852,6 +990,7 @@ def phase_propagate(seed: int, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     gather_rows.launches = 0
     patch_eval.launches = 0
+    patch_eval.launches_by_shape.clear()
     tm: dict = {}
     t0 = time.perf_counter()
     out = blend_video_frames(dict(enumerate(frames)), {0: truth[0], n - 1: truth[n - 1]}, [0, n - 1],
@@ -859,12 +998,14 @@ def phase_propagate(seed: int, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"row_gather": gather_rows.launches, "patch_eval": patch_eval.launches}
+    pe_counts = dict(patch_eval.launches_by_shape)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     psnr = _psnr(out, truth, range(1, n - 1))
     print("propagate phases (s, host wall, overlapping): "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(tm.items(), key=lambda kv: -kv[1])))
     print(f"propagate: {n} frames {PROP_HW[0]}x{PROP_HW[1]}, 1 interval, wall {wall:.2f} s, peak device memory "
           f"{peak_gb:.2f} GiB, launches {launches}, PSNR vs truth {psnr:.3f} dB (floor {PROP_PSNR_FLOOR})")
+    patch_eval_by_shape("propagate", pe_counts, pe_shape_ms, seed, dev)
     if sorted(out) != list(range(n)) or any(out[i].shape != (*PROP_HW, 3) or out[i].dtype != np.uint8 for i in out):
         fail("propagate: wrong frames out")
     if not (np.array_equal(out[0], truth[0]) and np.array_equal(out[n - 1], truth[n - 1])):
@@ -1045,7 +1186,7 @@ def phase_aux(seed: int, dev, big: bool = True):
 E2E_FRAMES, E2E_MININTERV, E2E_MAXINTERV = 41, 3, 5
 
 
-def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512, gram_rows=None):
+def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512, gram_rows=None, pe_shape_ms=None):
     """Keyframes (selection, 2 batches with the record carried, GMFlow, HED,
     EGNet background smoothing) then propagation of the whole clip."""
     from fresco_torch.attention.flash import flash_attention
@@ -1075,6 +1216,7 @@ def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512, gram_rows=None
     for k in (flash_attention, sign_gram_apply, gather_rows, patch_eval, bmm):
         k.launches = 0
     sign_gram_apply.launches_by_shape.clear()
+    patch_eval.launches_by_shape.clear()
     t0 = time.perf_counter()
     keys = pipe.translate_keyframes(frames, verbose=True)
     sync()
@@ -1094,12 +1236,15 @@ def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512, gram_rows=None
                 "row_gather": gather_rows.launches, "patch_eval": patch_eval.launches}
     if cfg.gram_dtype == "bfloat16":  # the bf16 pair's apply is bmm
         launches["bmm"] = bmm.launches
+    pe_counts = dict(patch_eval.launches_by_shape)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
     ph = pipe.phases.times
     print(f"e2e: {n} frames {res}x{res}, {len(key_ind)} keyframes {key_ind}, keyframe stage {t_keys:.2f} s, "
           f"propagation {t_prop:.2f} s, wall {t_keys + t_prop:.2f} s, peak device memory "
           f"{peak_gb:.2f} GiB, launches {launches}")
     sign_gram_by_shape("e2e", gram_rows)
+    if dev.type == "cuda":
+        patch_eval_by_shape("e2e", pe_counts, {} if pe_shape_ms is None else pe_shape_ms, seed, dev)
     names = [("gmflow/interframe_prep", "interframe_prep"), ("saliency", "saliency"),
              ("control_detector", "control_detector"), ("intraframe_prep", "intraframe_prep"),
              ("attn_params", "attn_params"), ("encode_prompts", "encode_prompts"), ("denoise_loop", "denoise_loop"),
@@ -1149,12 +1294,12 @@ def main() -> None:
     phase_small(args.seed, dev)
     launches = phase_slice(args.seed, dev, gram_rows)
     gather_rows_ = phase_gather(gen, dev)
-    pe_rows, pe_err = phase_patch_eval(args.seed, dev)
+    pe_rows, pe_err, pe_shape_ms = phase_patch_eval(args.seed, dev)
     phase_small_propagate(args.seed, dev)
-    launches.update(phase_propagate(args.seed, dev))
+    launches.update(phase_propagate(args.seed, dev, pe_shape_ms))
     gemm_rows, gemm_err = phase_gemm(gen, dev)
     phase_aux(args.seed, dev)
-    phase_e2e(args.seed, dev, gram_rows=gram_rows)
+    phase_e2e(args.seed, dev, gram_rows=gram_rows, pe_shape_ms=pe_shape_ms)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

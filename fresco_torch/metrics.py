@@ -12,6 +12,7 @@ import torch
 
 from fresco_torch.ops.resize import avg_pool2d
 from fresco_torch.ops.warp import flow_warp, forward_backward_consistency
+from fresco_torch.pipeline.runner import resolve_device
 
 
 @torch.no_grad()
@@ -43,9 +44,10 @@ def clip_frame_similarity(frames: torch.Tensor) -> float:
     return float(torch.mean(torch.sum(emb[:-1] * emb[1:], dim=-1)))
 
 
-def evaluate_translation(out_frames: np.ndarray, flow_fn, device: torch.device | str = "cpu") -> dict:
-    """The report for a translated clip, uint8 [F, H, W, 3]."""
-    x = torch.as_tensor(np.asarray(out_frames), device=device).to(torch.float32)
+def evaluate_translation(out_frames: np.ndarray, flow_fn, device: torch.device | str | None = None) -> dict:
+    """The report for a translated clip, uint8 [F, H, W, 3], on ``device``
+    (default the card; raises where there is none)."""
+    x = torch.as_tensor(np.asarray(out_frames), device=resolve_device(device)).to(torch.float32)
     return {
         "warp_error": warp_error(x, flow_fn),
         "frame_similarity": clip_frame_similarity(x),

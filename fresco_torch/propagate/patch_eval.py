@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from fresco_torch import kernels
 
-TILE = 16  # the kernel's target tile edge
+TILE = 4  # the kernel's target tile edge (csrc/patch_eval.cu kTile)
 
 
 def offsets(patch: int):
@@ -47,7 +47,7 @@ def target_patches(img: torch.Tensor, patch: int) -> torch.Tensor:
 @dataclasses.dataclass
 class ActiveSet:
     """Pixels a call evaluates: a [th, tw] bool mask, and the int32 flat
-    indices of the 16x16 tiles that hold an active pixel (the kernel's
+    indices of the TILE x TILE tiles that hold an active pixel (the kernel's
     grid), or None to sweep every tile and idle the inactive pixels (the
     plain version then evaluates every pixel and keeps the active ones).
     Built once per search-vote iteration by ``active_set``."""
@@ -176,22 +176,11 @@ def _pad_channels(x: torch.Tensor, cp: int) -> torch.Tensor:
     return x.contiguous() if c == cp else F.pad(x, (0, cp - c)).contiguous()
 
 
-def patch_eval(src, tgt, weights, omega, nnf, e=None, shifts=(), deltas=None, active=None, patch=5):
-    """One PatchMatch iteration of candidate evaluation.
-
-    src [sh,sw,C] and tgt [th,tw,C] bf16 (source style+guides; voted
-    target style + guides, same channel order); weights [C] float32;
-    omega [sh,sw] bf16, the scaled uniformity term, or None; nnf
-    [th,tw,2] int32 (y, x), the current matches that the shifts read;
-    e [th,tw] float32, their errors, or None to evaluate the current
-    match first; shifts, a tuple of jump-flood distances; deltas
-    [n_rand,th,tw,2] int32 or None; active, an ``ActiveSet`` or None
-    (every pixel).  Returns (nnf', e'); pixels outside ``active`` keep
-    their inputs (e' = inf there when e is None)."""
-    if patch not in (3, 5):
-        raise ValueError(f"patch_eval: patch {patch} (3 or 5)")
-    if src.device.type == "cpu":
-        return patch_eval_plain(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch)
+def _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch):
+    """Check a CUDA call's arguments and lay them out for the C entry point
+    ``fresco_patch_eval``: (its arguments, or None when no tile is listed;
+    nnf_out; e_out; the candidate count; the tensors the arguments point
+    into, which must outlive the launch)."""
     dev = src.device
     if dev.type != "cuda":
         raise ValueError(f"patch_eval: unsupported device {dev}")
@@ -227,23 +216,55 @@ def patch_eval(src, tgt, weights, omega, nnf, e=None, shifts=(), deltas=None, ac
     e_in = None if e is None else e.contiguous()
     omega_c = None if omega is None else omega.contiguous()
     deltas_c = None if deltas is None else deltas.contiguous()
-    nnf_out = nnf_in.clone()
-    e_out = torch.full((th, tw), float("inf"), device=dev) if e_in is None else e_in.clone()
+    if active is None:  # the kernel writes every pixel
+        nnf_out, e_out = torch.empty_like(nnf_in), torch.empty((th, tw), device=dev)
+    else:  # pixels outside the active set keep their inputs
+        nnf_out = nnf_in.clone()
+        e_out = torch.full((th, tw), float("inf"), device=dev) if e_in is None else e_in.clone()
+    n_cand = 4 * len(shifts) + (0 if deltas_c is None else deltas_c.shape[0])
     tiles = None if active is None else active.tiles
     if tiles is not None and tiles.numel() == 0:
-        return nnf_out, e_out
+        return None, nnf_out, e_out, n_cand or 1, ()
     shift_vals = (ctypes.c_int * max(len(shifts), 1))(*shifts)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kernels.check(kernels.load().fresco_patch_eval(
-        src_p.data_ptr(), tgt_p.data_ptr(), w_p.data_ptr(), ptr(omega_c), nnf_in.data_ptr(), ptr(e_in),
-        nnf_out.data_ptr(), e_out.data_ptr(), ptr(deltas_c),
-        ptr(tiles), None if active is None else active.mask.data_ptr(),
-        sh, sw, th, tw, cp, patch, len(shifts), shift_vals,
-        0 if deltas_c is None else deltas_c.shape[0],
-        0 if tiles is None else tiles.shape[0],
-        torch.cuda.current_stream(dev).cuda_stream), "patch_eval")
-    kernels.count_launch(patch_eval)
+    keep = (src_p, tgt_p, w_p, omega_c, nnf_in, e_in, deltas_c, shift_vals)
+    c_args = (src_p.data_ptr(), tgt_p.data_ptr(), w_p.data_ptr(), ptr(omega_c), nnf_in.data_ptr(), ptr(e_in),
+              nnf_out.data_ptr(), e_out.data_ptr(), ptr(deltas_c),
+              ptr(tiles), None if active is None else active.mask.data_ptr(),
+              sh, sw, th, tw, cp, patch, len(shifts), shift_vals,
+              0 if deltas_c is None else deltas_c.shape[0],
+              0 if tiles is None else tiles.shape[0],
+              torch.cuda.current_stream(dev).cuda_stream)
+    return c_args, nnf_out, e_out, n_cand or 1, keep
+
+
+def patch_eval(src, tgt, weights, omega, nnf, e=None, shifts=(), deltas=None, active=None, patch=5):
+    """One PatchMatch iteration of candidate evaluation.
+
+    src [sh,sw,C] and tgt [th,tw,C] bf16 (source style+guides; voted
+    target style + guides, same channel order); weights [C] float32;
+    omega [sh,sw] bf16, the scaled uniformity term, or None; nnf
+    [th,tw,2] int32 (y, x), the current matches that the shifts read;
+    e [th,tw] float32, their errors, or None to evaluate the current
+    match first; shifts, a tuple of jump-flood distances; deltas
+    [n_rand,th,tw,2] int32 or None; active, an ``ActiveSet`` or None
+    (every pixel).  Returns (nnf', e'); pixels outside ``active`` keep
+    their inputs (e' = inf there when e is None).  Each launch counts in
+    ``patch_eval.launches`` and, by (th, tw, candidates), in
+    ``patch_eval.launches_by_shape``; candidates = 4·len(shifts) +
+    n_rand, or 1 for the one-candidate set."""
+    if patch not in (3, 5):
+        raise ValueError(f"patch_eval: patch {patch} (3 or 5)")
+    if src.device.type == "cpu":
+        return patch_eval_plain(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch)
+    c_args, nnf_out, e_out, n_cand, _keep = _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas,
+                                                         active, patch)
+    if c_args is None:
+        return nnf_out, e_out
+    kernels.check(kernels.load().fresco_patch_eval(*c_args), "patch_eval")
+    kernels.count_launch(patch_eval, (tgt.shape[0], tgt.shape[1], n_cand))
     return nnf_out, e_out
 
 
 patch_eval.launches = 0
+patch_eval.launches_by_shape = {}

@@ -59,7 +59,7 @@ class PatchMatchConfig:
     # Freeze compaction.  The JAX package picks, per search-vote
     # iteration, the smallest of these tiers (N/2, N/4, N/16 positions)
     # that the active count fits.  The port needs no caps: any non-empty
-    # value makes the candidate kernel run only the 16x16 tiles that hold
+    # value makes the candidate kernel run only the 4x4 tiles that hold
     # an active pixel (exact: frozen pixels keep their match either way,
     # and the random draws are on the full grid); () sweeps every tile.
     # The tier values themselves are not read.
@@ -140,6 +140,18 @@ def _omega(nnf_y, nnf_x, sh, sw, patch):
     return sum(rows[:, i: i + sw] for i in range(patch))
 
 
+def level_candidates(sh: int, sw: int, seeded: int, rand_candidates: int = PatchMatchConfig.rand_candidates):
+    """The candidate set of a pyramid level with an sh x sw source:
+    (jump-flood shift distances, random-search radii).  ``seeded`` is 0 at
+    an unseeded level (the coarsest), else the trim of upsample-seeded
+    levels (``PatchMatchConfig.trim_seeded_levels``); the default config
+    gives 20 candidates unseeded and 15 seeded."""
+    shifts = {0: (1, 2, 4, 8), 1: (1, 2, 4)}.get(int(seeded), (1, 2))
+    n_rand = max(rand_candidates - seeded, 1) if seeded else rand_candidates
+    base = 2 if seeded else 1
+    return shifts, [max(max(sh, sw) >> (j + base), 1) for j in range(n_rand)]
+
+
 def _synthesize_level(
     src_all,        # [sh, sw, C] style+guides (source)
     tgt_guides,     # [th, tw, Cg] target guides
@@ -195,10 +207,8 @@ def _synthesize_level(
     def target(style_):
         return torch.cat([style_.to(torch.bfloat16), tgt_g], -1).contiguous()
 
-    shifts = {0: (1, 2, 4, 8), 1: (1, 2, 4)}.get(int(seeded), (1, 2))
-    n_rand = max(rand_candidates - seeded, 1) if seeded else rand_candidates
-    base = 2 if seeded else 1
-    radii = [max(max(sh, sw) >> (j + base), 1) for j in range(n_rand)]
+    shifts, radii = level_candidates(sh, sw, seeded, rand_candidates)
+    n_rand = len(radii)
 
     nnf = nnf.to(torch.int32).contiguous()
     counts = [-1] * sv_iters

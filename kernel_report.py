@@ -1,4 +1,5 @@
-"""The row-gather, batched-GEMM and sign-gram kernels' report on the GPU:
+"""The row-gather, batched-GEMM, sign-gram and patch-evaluation kernels'
+report on the GPU:
 what the compiler says of each kernel instantiation (registers, spills,
 shared memory), which global loads and stores and which tensor-core
 instructions their SASS holds, and variants of each timed in turns on the
@@ -6,7 +7,7 @@ same inputs.
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
-    python3 kernel_report.py [--parent DIR]... [--select TEXT] [--no-variants]
+    python3 kernel_report.py [--kernel NAME]... [--parent DIR]... [--select TEXT] [--no-variants]
 
 A variant is the source with a few strings replaced (the replacements are
 listed below, and a variant whose strings are missing fails), built into a
@@ -20,7 +21,10 @@ index_select (bit for bit), the float32 product or the plain sign (flips
 only at near ties), except the variants marked timing only, which leave
 out part of the work on purpose.  For sign-gram a parent tree's pair (its
 own sign and apply kernels, int8 S) is timed beside this tree's pair (the
-sign kernel, then bmm), at the main path's five bf16 shapes.
+sign kernel, then bmm), at the main path's five bf16 shapes.  For
+patch_eval the variants run at four shapes of the interval's pyramid
+under phase 7's near-tie rule; this tree's and the parents' kernels run
+at every shape of the interval's and the e2e run's pyramids.
 """
 from __future__ import annotations
 
@@ -158,6 +162,36 @@ SIGN_VARIANTS = {
     TIMING_ONLY + "no wgmma": _SIGN_NO_WGMMA,
     TIMING_ONLY + "128x128, 2 blocks a SM, no wgmma": _SIGN_TWO_BLOCKS + _SIGN_NO_WGMMA,
 }
+# patch_eval: the variants of this tree's kernel
+_PE_LANES = "constexpr int kLanes = 8;  // lanes evaluating one pixel's candidate"
+_PE_MINB = "constexpr int kMinBlocks = 4;  // blocks a SM that __launch_bounds__ asks for"
+_PE_BASE = "  const uint4* base = a.src + ((long long)(cy - L::R) * a.sw + (cx - L::R)) * L::V;\n"
+_PE_MATH = ("      const float d0 = bf_lo(u) - bf_lo(word(tv, q)), d1 = bf_hi(u) - bf_hi(word(tv, q));\n"
+            "      acc[2 * q] = fmaf(d0, d0, acc[2 * q]);\n"
+            "      acc[2 * q + 1] = fmaf(d1, d1, acc[2 * q + 1]);\n")
+_PE_BUTTERFLY = "  for (int m = 1; m < L::LANES; m <<= 1) e += __shfl_xor_sync(kFull, e, m);\n"
+_PE_SHIFTS = "#pragma unroll 1\n    for (int k = 0; k < n_shift; ++k) {"
+_PE_ONE_LANES = "constexpr int kLanesOne = 2;"
+_PE_ONE_MINB = "constexpr int kMinBlocksOne = 8;"
+PATCH_EVAL_VARIANTS = {
+    "4 lanes a pixel": [(_PE_LANES, "constexpr int kLanes = 4;")],
+    "3 blocks a SM asked for": [(_PE_MINB, "constexpr int kMinBlocks = 3;")],
+    "5 blocks a SM asked for": [(_PE_MINB, "constexpr int kMinBlocks = 5;")],
+    "shift loop unrolled by 2": [(_PE_SHIFTS, _PE_SHIFTS.replace("unroll 1", "unroll 2"))],
+    "one-candidate kernel: 4 lanes a pixel": [(_PE_ONE_LANES, "constexpr int kLanesOne = 4;")],
+    "one-candidate kernel: 8 lanes a pixel": [(_PE_ONE_LANES, "constexpr int kLanesOne = 8;")],
+    "one-candidate kernel: 6 blocks a SM asked for": [(_PE_ONE_MINB, "constexpr int kMinBlocksOne = 6;")],
+    "one-candidate kernel: 12 blocks a SM asked for": [(_PE_ONE_MINB, "constexpr int kMinBlocksOne = 12;")],
+    TIMING_ONLY + "source patch fixed (top-left, no random addresses)": [
+        (_PE_BASE, "  const uint4* base = a.src + (long long)((threadIdx.x / kLanes) % kTile) * L::V;\n")],
+    TIMING_ONLY + "no arithmetic (xor of the loaded words)": [
+        (_PE_MATH, "      acc[q] = __uint_as_float(__float_as_uint(acc[q]) ^ u ^ word(tv, q));\n")],
+    TIMING_ONLY + "no target unpack": [(_PE_MATH, _PE_MATH.replace("bf_lo(word(tv, q))", "__uint_as_float(word(tv, q))")
+                                       .replace("bf_hi(word(tv, q))", "__uint_as_float(word(tv, q))"))],
+    TIMING_ONLY + "no source unpack": [(_PE_MATH, _PE_MATH.replace("bf_lo(u)", "__uint_as_float(u)")
+                                       .replace("bf_hi(u)", "__uint_as_float(u)"))],
+    TIMING_ONLY + "no butterfly": [(_PE_BUTTERFLY, "")],
+}
 
 
 def compile_cubin(src: str, tmp: str) -> tuple[str, str]:
@@ -202,6 +236,7 @@ def sass_report(cubin: str) -> None:
     if proc.returncode != 0:
         cs.fail(f"cuobjdump -sass failed: {proc.stderr}")
     funcs: dict[str, list[str]] = {}
+    n_instr: dict[str, int] = collections.Counter()
     cur = None
     for line in proc.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -209,6 +244,7 @@ def sass_report(cubin: str) -> None:
             cur = short(m.group(1))
             funcs[cur] = []
         elif cur:
+            n_instr[cur] += bool(re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line))
             op = re.search(r"\b(LDG|STG|LDGSTS|HGMMA|HMMA|LDSM|STS|LDS|WARPGROUP\.\w+|BAR\.\w+)[\w.]*", line)
             if op:
                 funcs[cur].append(op.group(0))
@@ -219,7 +255,8 @@ def sass_report(cubin: str) -> None:
         order = ""
         if loads and stores:
             order = f"; global loads before the first global store: {sum(i < stores[0] for i in loads)} of {len(loads)}"
-        print(f"sass {name}: " + ", ".join(f"{k} x{v}" for k, v in sorted(counts.items())) + order)
+        print(f"sass {name}: {n_instr[name]} instructions; " + ", ".join(f"{k} x{v}" for k, v in sorted(counts.items()))
+              + order)
 
 
 def variant_source(src: str, subs: list[tuple[str, str]], tmp: str, tag: str) -> str:
@@ -244,17 +281,20 @@ def variant_source(src: str, subs: list[tuple[str, str]], tmp: str, tag: str) ->
 
 def build_all(srcs: dict[str, str], entry: str, libs_out: dict | None = None) -> dict:
     """{tag: bound C entry point}, one nvcc per source, all at once; the
-    loaded libraries go into ``libs_out`` by tag."""
+    loaded libraries go into ``libs_out`` by tag, and each build's
+    registers and spills are printed under its tag."""
     procs = {}
     for tag, vsrc in srcs.items():
         lib = os.path.join(os.path.dirname(vsrc), "lib.so")
-        procs[tag] = (lib, subprocess.Popen([kernels._nvcc(), *kernels.ARCH_FLAGS, *kernels.NVCC_FLAGS, "-o", lib,
-                                             vsrc], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        cmd = [kernels._nvcc(), *kernels.ARCH_FLAGS, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib, vsrc]
+        procs[tag] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for tag, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             cs.fail(f"variant {tag} failed to build:\n{out}")
+        print(f"variant {tag}:")
+        ptxas_report(srcs[tag], out)
         cdll = ctypes.CDLL(lib)
         if libs_out is not None:
             libs_out[tag] = cdll
@@ -400,13 +440,59 @@ def sign_variants(libs: dict, dev, parents: dict) -> None:
         del vr, v, corr, d, fns, outs, pairs
 
 
+PATCH_EVAL_SHAPES = ((512, 640, 15), (128, 160, 15), (16, 20, 20), (512, 640, 1))  # where every variant runs
+
+
+def patch_eval_shapes() -> list:
+    """Every (height, width, candidates) the interval's 512x640 pyramid and
+    the e2e run's 512x512 one launch: 20 candidates at the coarsest level,
+    15 at the seeded ones, and the one-candidate set at each."""
+    from fresco_torch.propagate import patchmatch as pm
+
+    out = []
+    for hw in (cs.PROP_HW, (512, 512)):
+        for i, ((h, w), _) in enumerate(pm._pyramid_sizes(*hw, *hw, 5, -1)):
+            out += [(h, w, 20 if i == 0 else 15), (h, w, 1)]
+    return out
+
+
+def patch_eval_variants(libs: dict, dev, parents: dict) -> None:
+    """This tree's kernel beside each parent's at every shape of the two
+    pyramids, and every variant at four of them (the finest level with 15
+    candidates and with one, 128x160 and the coarsest), on phase 7's
+    inputs: each held to the plain version
+    under phase 7's near-tie rule (timing-only variants are not held), then
+    timed in turns, queued behind a sleep (``chip_smoke.queued_ms``)."""
+    from fresco_torch.propagate import patch_eval as pe
+
+    for h, w, n in patch_eval_shapes():
+        tags = list(libs) if (h, w, n) in PATCH_EVAL_SHAPES else ["this tree", *parents]
+        args = cs._patch_eval_shape_args(0, dev, h, w, n)
+        ref = pe.patch_eval_plain(*args)
+        fns = {}
+        for tag in tags:
+            call = cs.patch_eval_launcher(args, 5, libs[tag])
+            call()
+            torch.cuda.synchronize()
+            if not tag.startswith(TIMING_ONLY):
+                cs._check_patch_eval(f"variant {tag} at {h}x{w} {n} cand", args, 5, call.outputs, ref)
+            fns[tag] = call
+        times = collections.defaultdict(list)
+        for tag in tags + tags[:1]:
+            times[tag].append(cs.queued_ms(fns[tag]))
+        for tag, ms in times.items():
+            print(f"patch_eval {h}x{w} {n} cand {tag:56s}: " + " / ".join(f"{m_:.4f}" for m_ in ms) + " ms")
+        del args, ref, fns
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", action="append", default=[],
                     help="another checkout whose csrc is timed beside this one (may be repeated)")
     ap.add_argument("--no-variants", action="store_true")
     ap.add_argument("--select", default="", help="only the variants whose name holds this string")
-    ap.add_argument("--kernel", action="append", default=[], choices=["row_gather", "bmm", "sign_gram"],
+    ap.add_argument("--kernel", action="append", default=[],
+                    choices=["row_gather", "bmm", "sign_gram", "patch_eval"],
                     help="report only this kernel (may be repeated; default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -418,7 +504,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for kern, variants, entry, run in (("row_gather", GATHER_VARIANTS, "fresco_row_gather", gather_variants),
                                            ("bmm", BMM_VARIANTS, "fresco_bmm", bmm_variants),
-                                           ("sign_gram", SIGN_VARIANTS, "fresco_sign_gram_sign", sign_variants)):
+                                           ("sign_gram", SIGN_VARIANTS, "fresco_sign_gram_sign", sign_variants),
+                                           ("patch_eval", PATCH_EVAL_VARIANTS, "fresco_patch_eval",
+                                            patch_eval_variants)):
             if args.kernel and kern not in args.kernel:
                 continue
             src = os.path.join(kernels.CSRC, f"{kern}.cu")

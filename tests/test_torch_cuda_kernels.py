@@ -231,28 +231,79 @@ def assert_near_tie_agreement(args, out, ref, patch, rel=1e-5, min_agree=0.999):
         assert tuple(kn[y, x].tolist()) in near_tie_matches(*args[:8], y, x, patch=patch, rel=rel)
 
 
+def _level_deltas(dev, h, w, seeded, g):
+    """The shifts and random deltas ``_synthesize_level`` runs at an h x w
+    level: 15 candidates when seeded, 20 at the coarsest level."""
+    from fresco_torch.propagate.patchmatch import level_candidates
+
+    shifts, radii = level_candidates(h, w, seeded)
+    return shifts, torch.stack([torch.randint(-rad, rad + 1, (h, w, 2), device=dev, generator=g, dtype=torch.int32)
+                                for rad in radii])
+
+
+def _periodic(dev, h, w, c, g):
+    """Integers in [0, 64) repeating every 8 pixels, as bf16 (exact)."""
+    period = torch.randint(0, 64, (8, 8, c), device=dev, generator=g).float()
+    return period.repeat(-(-h // 8), -(-w // 8), 1)[:h, :w].to(torch.bfloat16).contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,patch", [(15, 5), (15, 3), (20, 5)])
-@pytest.mark.parametrize("mode", ["be0", "candidates", "full_sweep", "compact"])
+@pytest.mark.parametrize("mode", ["be0", "candidates", "full_sweep", "compact", "level16x20", "level32x40",
+                                  "level64x80", "exact_tie", "constant"])
 def test_patch_eval_kernel_matches_plain(cuda_device, c, patch, mode):
+    """The kernel against its plain version under the near-tie rule: one
+    ragged 37x45 grid in four modes; the coarse levels' shapes with their
+    candidate sets and a ragged active set; an 8-px periodic source of
+    small integers with power-of-two weights and no omega, where every
+    error is exact and identical patches tie, so the NNF and the errors
+    must be bit-equal (the earlier candidate wins a tie); a constant image
+    (the same weights), where no candidate is strictly better and the NNF
+    comes back as it went in."""
     from fresco_torch.propagate.patch_eval import active_set, patch_eval, patch_eval_plain
 
-    src, tgt, weights, omega, nnf, deltas, mask, r = _patch_inputs(cuda_device, 40, 56, 37, 45, c, patch)
-    _, e0 = patch_eval_plain(src, tgt, weights, omega, nnf, None, patch=patch)
-    if mode == "be0":
+    dev = cuda_device
+    exact = mode in ("exact_tie", "constant")
+    if mode.startswith("level"):
+        h, w = map(int, mode[len("level"):].split("x"))
+        src, tgt, weights, omega, nnf, _, mask, r = _patch_inputs(dev, h, w, h, w, c, patch)
+        shifts, deltas = _level_deltas(dev, h, w, h > 16, torch.Generator(device=dev).manual_seed(1))
+        sh, sw = h, w
+    else:
+        sh, sw = 40, 56
+        src, tgt, weights, omega, nnf, deltas, mask, r = _patch_inputs(dev, sh, sw, 37, 45, c, patch)
+        shifts = (1, 2, 4, 8)
+    nnf0 = torch.stack([nnf[..., 0].clamp(r, sh - 1 - r), nnf[..., 1].clamp(r, sw - 1 - r)], -1)
+    if exact:
+        g = torch.Generator(device=dev).manual_seed(2)
+        weights = 2.0 ** -torch.randint(0, 3, (c,), device=dev, generator=g).float()
+        if mode == "exact_tie":
+            src, tgt = _periodic(dev, sh, sw, c, g), _periodic(dev, 37, 45, c, g)
+        else:
+            src = torch.full_like(src, 77.0)
+            tgt = torch.full_like(tgt, 80.0)
+        args = (src, tgt, weights, None, nnf0, None, shifts, deltas, None)
+    elif mode == "be0":
         args = (src, tgt, weights, omega, nnf, None, (), None, None)
     else:
-        nnf0 = torch.stack([nnf[..., 0].clamp(r, 39 - r), nnf[..., 1].clamp(r, 55 - r)], -1)
-        act = None if mode == "candidates" else active_set(mask, compact=mode == "compact")
-        args = (src, tgt, weights, omega, nnf0, e0, (1, 2, 4, 8), deltas, act)
-    before = patch_eval.launches
+        _, e0 = patch_eval_plain(src, tgt, weights, omega, nnf, None, patch=patch)
+        act = None if mode == "candidates" else active_set(mask, compact=mode != "full_sweep")
+        args = (src, tgt, weights, omega, nnf0, e0, shifts, deltas, act)
+    shape = (tgt.shape[0], tgt.shape[1], max(4 * len(args[6]) + (0 if args[7] is None else args[7].shape[0]), 1))
+    before, before_shape = patch_eval.launches, patch_eval.launches_by_shape.get(shape, 0)
     out = patch_eval(*args, patch=patch)
     torch.cuda.synchronize()
     assert patch_eval.launches == before + 1
+    assert patch_eval.launches_by_shape[shape] == before_shape + 1
     ref = patch_eval_plain(*args, patch=patch)
+    if exact:
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        if mode == "constant":
+            assert torch.equal(out[0], nnf0)
+        return
     assert_near_tie_agreement(args, out, ref, patch)
-    if mode in ("full_sweep", "compact"):  # frozen pixels keep their inputs
-        assert torch.equal(out[0][~mask], args[4][~mask]) and torch.equal(out[1][~mask], e0[~mask])
+    if args[8] is not None:  # frozen pixels keep their inputs
+        assert torch.equal(out[0][~mask], args[4][~mask]) and torch.equal(out[1][~mask], args[5][~mask])
 
 
 @pytest.mark.cuda

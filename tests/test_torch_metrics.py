@@ -2,6 +2,7 @@
 frames and flows, float32 sums over 64x64x3 values, held to 1e-5
 relative (measured 0); ``avg_pool2d`` to 1e-6 relative."""
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -24,7 +25,7 @@ def test_metrics_match_jax():
     imgs, flows = _inputs()
     frames = np.stack(imgs)
     ref = jmetrics.evaluate_translation(frames, lambda a, b: jnp.asarray(flows))
-    out = tm.evaluate_translation(frames, lambda a, b: torch.from_numpy(flows))
+    out = tm.evaluate_translation(frames, lambda a, b: torch.from_numpy(flows), device="cpu")
     assert out["frame_similarity_is_clip"] is False and ref["frame_similarity_is_clip"] is False
     for k in ("warp_error", "frame_similarity"):
         assert np.isfinite(out[k])
@@ -33,3 +34,12 @@ def test_metrics_match_jax():
     still = np.repeat(frames[:1], 3, axis=0)
     zero = lambda a, b: torch.zeros((2 * a.shape[0], *a.shape[1:3], 2))  # noqa: E731
     assert tm.warp_error(torch.from_numpy(still).float(), zero) == 0.0
+
+
+def test_evaluate_translation_defaults_to_the_card(monkeypatch):
+    """Without a device the report runs on the card, and raises where there
+    is none; it never falls back to the CPU quietly."""
+    imgs, flows = _inputs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tm.evaluate_translation(np.stack(imgs), lambda a, b: torch.from_numpy(flows))

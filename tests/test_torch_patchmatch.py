@@ -12,7 +12,11 @@ Tolerances:
   final errors within 1e-4 relative); elsewhere the errors agree to 1e-5
   relative and the voted style to 1e-3 absolute (the vote's sum order);
 - the port's full and compacted paths: exactly equal (same draws, same
-  arithmetic, frozen pixels keep their match either way).
+  arithmetic, frozen pixels keep their match either way);
+- a whole level on an 8-px periodic source of small integers, where
+  candidates tie bit for bit and the earlier one is kept: the NNF and the
+  (exact) errors equal to the JAX level's, the voted style to 1e-3;
+- the tile list of the compacted path: exactly a direct reckoning.
 """
 import numpy as np
 import pytest
@@ -24,7 +28,7 @@ import jax.numpy as jnp
 
 from fresco_torch.propagate import patchmatch as T
 from fresco_torch.propagate.gather import gather_rows
-from fresco_torch.propagate.patch_eval import patch_eval_plain
+from fresco_torch.propagate.patch_eval import TILE, active_set, patch_eval_plain
 from fresco_tpu.propagate import patchmatch as J
 
 SH, SW = 48, 64
@@ -150,6 +154,56 @@ def test_whole_level_matches_jax(level_inputs, compact):
     tn, to, te, counts = _run_level(level_inputs, True, compact=compact, debug_counts=True, **kw)
     assert min(c for c in counts if c >= 0) < SH * SW  # the freeze took effect
     _assert_near_tie_match((to, te, tn), (jo, je, jn))
+
+
+@pytest.fixture(scope="module")
+def periodic_inputs():
+    """A source whose style and guides repeat every 8 pixels, so many
+    candidate patches are bit-identical, and a target whose guides are the
+    source's shifted by (3, 5).  Values are integers in [0, 64) and the
+    guide weights powers of two, the style weighted 0: every error is then
+    exact in float32 whatever the summation order, so a tie is a tie in
+    both packages (XLA sums the current match's error and the candidates'
+    in separately fused reductions)."""
+    rng = np.random.default_rng(4)
+    period = rng.integers(0, 64, (8, 8, 15)).astype(np.float32)
+    src_all = np.tile(period, (SH // 8, SW // 8, 1))
+    tg = np.roll(src_all[..., 3:], (3, 5), (0, 1)).copy()
+    gw = np.repeat(np.array([1.0, 0.5, 0.25, 0.125], np.float32), 3)
+    ws = np.zeros(3, np.float32)
+    nnf0 = np.stack([rng.integers(-4, SH + 4, (SH, SW)), rng.integers(-4, SW + 4, (SH, SW))], -1).astype(np.int32)
+    return dict(src_all=src_all, tg=tg, style=src_all[..., :3].copy(), gw=gw, ws=ws, nnf0=nnf0)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_exact_ties_keep_the_earlier_candidate(periodic_inputs, compact):
+    """rand_candidates=0, no uniformity term and no freeze: every tie
+    between two candidates is exact (identical patches) and both packages
+    keep the earlier candidate, so the NNF is bit-equal to the JAX
+    level's."""
+    kw = dict(patch=5, pm_iters=2, sv_iters=3, uniformity=0.0, rand_candidates=0, stop_threshold=0.0, seeded=0)
+    jn, jo, je = _run_level(periodic_inputs, False, compact=compact, **kw)
+    tn, to, te = _run_level(periodic_inputs, True, compact=compact, **kw)
+    np.testing.assert_array_equal(tn, jn)
+    np.testing.assert_array_equal(te, je)
+    np.testing.assert_allclose(to, jo, rtol=0, atol=1e-3)
+
+
+def test_active_set_tiles_match_a_direct_reckoning():
+    """The compacted path's tile list on a mask whose edges no tile
+    divides: row-major indices of the TILE x TILE tiles holding an active
+    pixel, the ragged last row and column included."""
+    rng = np.random.default_rng(3)
+    h, w = 37, 45
+    mask = rng.random((h, w)) > 0.97
+    mask[h - 1, w - 1] = True
+    ny, nx = -(-h // TILE), -(-w // TILE)
+    want = [ty * nx + tx for ty in range(ny) for tx in range(nx)
+            if mask[ty * TILE:(ty + 1) * TILE, tx * TILE:(tx + 1) * TILE].any()]
+    act = active_set(_t(mask))
+    assert act.tiles.dtype == torch.int32 and act.tiles.tolist() == want
+    assert torch.equal(act.mask, _t(mask))
+    assert active_set(_t(mask), compact=False).tiles is None
 
 
 class JaxDraws:
