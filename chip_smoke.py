@@ -47,8 +47,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                at 512x640, C = 15: 15 and 20 candidates, a ragged active
                set, patch 3; then at each coarser level of the interval's
                pyramid (256x320 down to 16x20) with its candidates, and the
-               one-candidate set; the NNF may differ only at near ties;
-               every case timed;
+               one-candidate set at every level; the NNF may differ only at
+               near ties; every case timed beside its bound and plain time;
   8. propagate: a 64x80 synthesize and 11-frame interval on the card and on
                the CPU with the same draws, compared; then one interval of
                11 frames at 512x640 through blend_video_frames (default
@@ -80,7 +80,21 @@ Phases (each prints its own lines; any failure exits non-zero):
                are printed by shape beside their times (patch_eval's
                512x512 pyramid timed there); the keyframes
                must pass through propagation unchanged.  Phases are
-               synchronized, so the breakdown is device time.
+               synchronized, so the breakdown is device time;
+ 12. weights : full SD1.5-width checkpoints written from seeded modules
+               into a temporary directory in scripts/fetch_weights.py's
+               layout (the UNet as float16 .safetensors, the VAE as .bin,
+               CLIP text with its position_ids, sd-controlnet-hed, GMFlow,
+               ControlNetHED.pth, epoch_resnet.pth, a kohya LoRA over UNet
+               attention and text-encoder layers), loaded by build_models:
+               every module bit-equal to its source in the pipeline's
+               dtypes, the LoRA's weights to source + a delta computed here;
+               load seconds per model; then one keyframe batch (8 x 512 px,
+               config_music) on the loaded bundle with FreeU on and the
+               sparse warp mode (flash, sign-gram and bmm must launch);
+               then the sparse warp against the dense one at the four
+               decoder-stage shapes (gradients, determinism, one
+               optimize_feature call in each mode, timed).
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
@@ -903,7 +917,7 @@ def phase_patch_eval(seed: int, dev):
     random); a ragged active set (compaction); patch 3 without omega; then
     each coarser level of the interval's pyramid with the candidates
     ``_synthesize_level`` runs there, and the one-candidate set (the current
-    match's error) at 512x640.  Each case's ``ms`` is the wrapper call
+    match's error) at 512x640 and at each coarser level.  Each case's ``ms`` is the wrapper call
     (``timed``, as every kernel's row), ``kernel_ms`` the kernel alone
     queued behind a sleep (``queued_ms``: none of the wrapper's layout work
     and none of the host's time).  Returns the kernel table rows by name,
@@ -922,6 +936,7 @@ def phase_patch_eval(seed: int, dev):
         shifts, radii = pm.level_candidates(h, w, seeded)
         cases.append((f"level {h}x{w} {4 * len(shifts) + len(radii)} cand", (h, w), seeded, shifts, radii, 5, False))
     cases.append(("one candidate", PROP_HW, True, (), [], 5, False))
+    cases += [(f"one candidate {h}x{w}", (h, w), True, (), [], 5, False) for h, w in levels[:-1][::-1]]
     for name, (h, w), seeded, shifts, radii, patch, compact in cases:
         src, tgt, weights, omega, nnf, deltas, act, mask, n_pix = _patch_eval_case(
             seed, dev, (h, w), seeded, shifts, radii, patch, compact)
@@ -1265,6 +1280,343 @@ def phase_e2e(seed: int, dev, tiny: bool = False, res: int = 512, gram_rows=None
     return launches
 
 
+# ---------------------------------------------------------------- weights
+LORA_RANK, LORA_SCALE = 8, 0.8
+# sparse vs dense warp, float32.  The warp's VJP is linear: the two sum the
+# same four taps per pixel in other orders.  The temporal loss's gradient
+# has |.| kinks: a residual within float32 rounding of 0 takes the other
+# sign in the other form and moves that element by ~2/N, so elements may
+# differ on a tiny share of pixels, and the Frobenius norm is held loosely.
+SPARSE_VJP_REL = 1e-5
+SPARSE_GRAD_FAR_SHARE = 1e-4   # share of elements differing by > 1e-3 of the largest
+SPARSE_GRAD_REL = 1e-2
+SPARSE_SHAPES = ((64, 1280), (256, 1280), (1024, 1280), (4096, 640))  # optimize_feature's (hw, c)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+
+def _seeded_(m: torch.nn.Module, gen) -> torch.nn.Module:
+    """Flax's init plus N(0, 0.02) on every tensor (no zero-initialized
+    ControlNet convolution or bias left to compare trivially)."""
+    from fresco_torch.models.layers import init_flax_default_
+
+    init_flax_default_(m, gen)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
+    return m.eval().requires_grad_(False)
+
+
+def _kohya_lora(unet_sd: dict, text_sd: dict, gen) -> dict:
+    """A kohya LoRA over the attention projections of up_blocks.3 and the
+    mid block, the mid block's feed-forward and the text encoder's q / v
+    projections; alpha on every other module."""
+    from fresco_torch.models.lora import _flax_path_for
+    from fresco_torch.models.convert import torch_key
+
+    mods = [f"lora_unet_up_blocks_3_attentions_{a}_transformer_blocks_0_{att}_{p}"
+            for a in range(3) for att in ("attn1", "attn2") for p in ("to_q", "to_k", "to_v", "to_out_0")]
+    mods += [f"lora_unet_mid_block_attentions_0_transformer_blocks_0_{s}"
+             for s in ("attn1_to_q", "attn2_to_v", "ff_net_0_proj", "ff_net_2")]
+    mods += [f"lora_te_text_model_encoder_layers_{i}_self_attn_{p}" for i in range(12) for p in ("q_proj", "v_proj")]
+    out = {}
+    for i, mod in enumerate(mods):
+        w = (unet_sd if mod.startswith("lora_unet_") else text_sd)[torch_key((*_flax_path_for(mod), "kernel"))]
+        o, n = w.shape
+        out[f"{mod}.lora_down.weight"] = (torch.randn(LORA_RANK, n, generator=gen) * 0.1).half()
+        out[f"{mod}.lora_up.weight"] = (torch.randn(o, LORA_RANK, generator=gen) * 0.1).half()
+        if i % 2 == 0:
+            out[f"{mod}.alpha"] = torch.tensor(LORA_RANK / 2.0)
+    return out
+
+
+def write_checkpoints(root: str, seed: int, dev):
+    """Seeded full-width modules on ``dev`` and their checkpoints under
+    ``root`` in the fetch_weights layout.  Returns (sources {model: state
+    dict on dev}, checkpoint dtypes, the LoRA dict, file sizes in bytes)."""
+    import os
+
+    from fresco_torch.models import convert as C
+    from fresco_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from fresco_torch.models.controlnet import ControlNet
+    from fresco_torch.models.egnet import EGNet, egnet_map
+    from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
+    from fresco_torch.models.gmflow.convert import gmflow_map
+    from fresco_torch.models.hed import HED, hed_map
+    from fresco_torch.models.unet import UNet2DCondition, UNetConfig
+    from fresco_torch.models.vae import AutoencoderKL, VAEConfig
+
+    ccfg = CLIPTextConfig()
+    ucfg = UNetConfig(cross_attention_dim=ccfg.hidden_size)  # as build_models sets it
+    with torch.device("meta"):
+        mods = {"unet": UNet2DCondition(ucfg), "vae": AutoencoderKL(VAEConfig()),
+                "controlnet": ControlNet(ucfg, (16, 32, 96, 256)), "text": CLIPTextEncoder(ccfg),
+                "gmflow": GMFlow(GMFlowConfig()), "hed": HED(), "egnet": EGNet()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    src = {n: dict(_seeded_(m.to_empty(device=dev), gen).state_dict()) for n, m in mods.items()}
+    maps = {"unet": C.sd_key_map("unet", ucfg), "vae": C.sd_key_map("vae", VAEConfig()),
+            "controlnet": C.sd_key_map("controlnet", ucfg), "text": C.sd_key_map("text", ccfg),
+            "gmflow": gmflow_map, "hed": hed_map, "egnet": egnet_map}
+    dtypes = dict.fromkeys(mods, torch.float32)
+    dtypes.update(unet=torch.float16, controlnet=torch.float16)
+    sd15 = os.path.join(root, "stable-diffusion-v1-5")
+    paths = {"unet": f"{sd15}/unet/diffusion_pytorch_model.safetensors",
+             "vae": f"{sd15}/vae/diffusion_pytorch_model.bin",
+             "text": f"{sd15}/text_encoder/model.safetensors",
+             "controlnet": f"{root}/sd-controlnet-hed/diffusion_pytorch_model.safetensors",
+             "gmflow": f"{root}/gmflow_sintel-0c07dcb3.pth", "hed": f"{root}/ControlNetHED.pth",
+             "egnet": f"{root}/epoch_resnet.pth"}
+    for name, path in paths.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        ck = {k: v.to(dtypes[name]).cpu() for k, v in C.to_checkpoint(src[name], maps[name]).items()}
+        if name == "text":
+            ck["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+        if name == "egnet":  # in the reference's file, unused by the forward
+            ck["merge1.trans.0.0.weight"] = torch.zeros(128, 64, 1, 1)
+            ck["base.bn1.num_batches_tracked"] = torch.tensor(0)
+        if path.endswith(".safetensors"):
+            C.write_safetensors(path, ck)
+        else:
+            torch.save({"model": ck} if name == "gmflow" else ck, path)
+    lgen = torch.Generator().manual_seed(seed + 13)
+    lora = _kohya_lora(src["unet"], src["text"], lgen)
+    paths["lora"] = f"{root}/lora.safetensors"
+    C.write_safetensors(paths["lora"], lora)
+    return src, dtypes, lora, {n: os.path.getsize(p) for n, p in paths.items()}
+
+
+def _expected_lora(src_sd: dict, ckpt_dtype, lora: dict, target: str) -> dict:
+    """{state-dict key: checkpoint weight + delta}, computed here: the
+    delta in float32 on the host, the sum rounded to the checkpoint dtype."""
+    from fresco_torch.models.convert import torch_key
+    from fresco_torch.models.lora import _flax_path_for
+
+    out = {}
+    for k in lora:
+        if not (k.startswith(target) and k.endswith(".lora_down.weight")):
+            continue
+        mod = k[: -len(".lora_down.weight")]
+        down, up = lora[k].float(), lora[f"{mod}.lora_up.weight"].float()
+        alpha = float(lora[f"{mod}.alpha"]) if f"{mod}.alpha" in lora else float(LORA_RANK)
+        key = torch_key((*_flax_path_for(mod), "kernel"))
+        w = src_sd[key].to(ckpt_dtype).cpu()
+        out[key] = (w.float() + (up @ down) * (alpha / LORA_RANK) * LORA_SCALE).to(ckpt_dtype)
+    return out
+
+
+def _norm_keys(m: torch.nn.Module) -> set:
+    from fresco_torch.models.layers import NORMS
+
+    return {f"{n}.{p}" if n else p for n, mod in m.named_modules() if isinstance(mod, NORMS)
+            for p, _ in mod.named_parameters(recurse=False)}
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.contiguous().view(view),
+                                                                      b.contiguous().view(view))
+
+
+def check_loaded(bundle, src: dict, dtypes: dict, lora: dict) -> None:
+    """Each loaded module against its source, bit for bit, in the
+    pipeline's dtypes: UNet / ControlNet / VAE in bf16 with float32 norms,
+    the text encoder, HED float32, GMFlow float32 on bf16-rounded weights,
+    EGNet bf16; the LoRA-touched weights against ``_expected_lora``."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    mods = {"unet": bundle.unet, "vae": bundle.vae, "controlnet": bundle.controlnet, "text": bundle.text_encoder,
+            "gmflow": bundle.gmflow, "hed": bundle.detector.args[0], "egnet": bundle.saliency_fn.args[0]}
+    lora_exp = {"unet": _expected_lora(src["unet"], dtypes["unet"], lora, "lora_unet_"),
+                "text": _expected_lora(src["text"], dtypes["text"], lora, "lora_te_")}
+    parts = []
+    for name, m in mods.items():
+        got = m.state_dict()
+        norms = _norm_keys(m)
+        bad, n_lora = [], 0
+        if sorted(got) != sorted(src[name]):
+            fail(f"weights {name}: the loaded module's keys differ from the source's")
+        for k, v in got.items():
+            want_dtype = {"unet": bf16, "vae": bf16, "controlnet": bf16, "egnet": bf16}.get(name, f32)
+            if want_dtype == bf16 and k in norms:
+                want_dtype = f32
+            w = src[name][k].to(dtypes[name])
+            if k in lora_exp.get(name, {}):
+                w, n_lora = lora_exp[name][k].to(v.device), n_lora + 1
+            w = w.to(bf16).float() if name == "gmflow" else w.to(want_dtype)
+            if v.dtype != want_dtype or not _bits_equal(v, w):
+                bad.append(k)
+        if bad:
+            fail(f"weights {name}: {len(bad)} of {len(got)} tensors differ from the source, e.g. {bad[:4]}")
+        parts.append(f"{name} {len(got)} tensors" + (f" ({n_lora} with the LoRA delta)" if n_lora else ""))
+    if len(lora_exp["unet"]) + len(lora_exp["text"]) != sum(1 for k in lora if k.endswith(".lora_down.weight")):
+        fail("weights: a LoRA module maps to no weight")
+    print("weights: loaded modules bit-equal to their sources in the pipeline's dtypes: " + "; ".join(parts))
+
+
+def sparse_vs_dense(seed: int, dev, shapes=SPARSE_SHAPES, res: int = 512) -> None:
+    """At the four decoder-stage shapes of optimize_feature (2F = 16, flows
+    of a 512x512 clip): the sparse warp's VJP and the temporal loss's
+    gradient against the dense form's in float32, the sparse backward
+    twice (bit-identical), and one optimize_feature call in each mode
+    (config_music's guidance: 20 iterations, bf16 grams), timed."""
+    import dataclasses
+
+    from fresco_torch.diffusion.guidance import (GuidanceConfig, apply_sparse_warp, make_sparse_warp,
+                                                 optimize_feature, temporal_loss, warp_matrix)
+    from fresco_torch.ops.blend import prepare_flow_for_scale
+    from fresco_torch.ops.warp import forward_backward_consistency
+
+    f, chunk = 8, 2
+    _, flows, _ = make_inputs(seed, f, res)
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    fwd, bwd = torch.from_numpy(flows[:f]).to(dev), torch.from_numpy(flows[f:]).to(dev)
+    occ = forward_backward_consistency(fwd, bwd)  # the clip's occlusions, as the inter-frame prep finds them
+    gcfg = GuidanceConfig()
+    for hw, c in shapes:
+        side = int(round(math.sqrt(hw)))
+        x = torch.randn(chunk * f, side, side, c, generator=g, device=dev)
+        fs, fo = prepare_flow_for_scale(fwd, occ[0], (side, side), dilate_full_res=False)
+        bs, bo = prepare_flow_for_scale(bwd, occ[1], (side, side), dilate_full_res=False)
+        sw = (make_sparse_warp(fs), make_sparse_warp(bs))
+        dw = (warp_matrix(fs, torch.float32), warp_matrix(bs, torch.float32))
+        ct = torch.randn(f, hw, chunk * c, generator=g, device=dev)
+        xv = x.reshape(chunk, f, hw, c).permute(1, 2, 0, 3).reshape(f, hw, chunk * c)
+        grads = []
+        for _ in range(2):
+            xr = xv.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad(apply_sparse_warp(xr, sw[0]), xr, ct)[0])
+        vjp_ref = torch.matmul(dw[0].transpose(1, 2), ct)
+        vjp_rel = ((grads[0] - vjp_ref).norm() / vjp_ref.norm()).item()
+        same_vjp = _bits_equal(grads[0], grads[1])
+        lg = []
+        for warps, runs in ((dw, 1), (sw, 2)):
+            for _ in range(runs):
+                xr = x.clone().requires_grad_(True)
+                lg.append(torch.autograd.grad(temporal_loss(xr, warps[0], warps[1], fo, bo, chunk), xr)[0])
+        dense_g, sparse_g, sparse_g2 = lg
+        if not float(dense_g.norm()) > 0:
+            fail(f"sparse vs dense hw={hw} c={c}: the temporal loss has no gradient (every pixel occluded?)")
+        d = (sparse_g - dense_g).abs()
+        rel = ((sparse_g - dense_g).norm() / dense_g.norm()).item()
+        far = (d > 1e-3 * dense_g.abs().max()).float().mean().item()
+        same_loss = _bits_equal(sparse_g, sparse_g2)
+        del grads, vjp_ref, lg, dense_g, sparse_g, sparse_g2, d, dw, sw
+        corr = torch.nn.functional.normalize(torch.randn(chunk * f, hw, c, generator=g, device=dev), dim=-1)
+        ms, peak = {}, {}
+        for mode in ("dense", "sparse", "sparse", "dense"):
+            cfg = dataclasses.replace(gcfg, warp_mode=mode)
+            _sync(dev)
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            out = optimize_feature(x.to(torch.bfloat16), fwd, bwd, occ[0], occ[1],
+                                   corr.to(torch.bfloat16), cfg, corr_is_dense=False)
+            _sync(dev)
+            ms.setdefault(mode, []).append((time.perf_counter() - t0) * 1e3)
+            peak[mode] = _peak_gib(dev)
+            if not bool(torch.isfinite(out).all()):
+                fail(f"sparse vs dense hw={hw} c={c}: {mode} optimize_feature output not finite")
+        print(f"sparse vs dense hw={hw} c={c} (2F = 16, occluded share fwd {float(fo.mean()):.3f} bwd "
+              f"{float(bo.mean()):.3f}): warp VJP rel fro {vjp_rel:.2e} (tol {SPARSE_VJP_REL}); "
+              f"temporal-loss gradient rel fro {rel:.2e} (tol {SPARSE_GRAD_REL}), share of elements off by "
+              f"> 1e-3 of the largest {far:.2e} (tol {SPARSE_GRAD_FAR_SHARE}); sparse backward twice bit-identical: "
+              f"VJP {same_vjp}, loss gradient {same_loss}; optimize_feature (20 iterations, bf16 grams) dense "
+              f"{ms['dense'][0]:.1f} / {ms['dense'][1]:.1f} ms, peak {peak['dense']:.2f} GiB; sparse "
+              f"{ms['sparse'][0]:.1f} / {ms['sparse'][1]:.1f} ms, peak {peak['sparse']:.2f} GiB (dense, sparse, "
+              f"sparse, dense in turn)")
+        if not (vjp_rel <= SPARSE_VJP_REL and rel <= SPARSE_GRAD_REL and far <= SPARSE_GRAD_FAR_SHARE):
+            fail(f"sparse vs dense hw={hw} c={c}: disagree")
+        if not (same_vjp and same_loss):
+            fail(f"sparse vs dense hw={hw} c={c}: the sparse backward is not deterministic")
+
+
+def phase_weights(seed: int, dev, gram_rows=None, res: int = 512, sparse_shapes=SPARSE_SHAPES):
+    """Checkpoints written, loaded through build_models, checked; one
+    keyframe batch on the loaded bundle (FreeU, LoRA, sparse warp); sparse
+    against dense."""
+    import dataclasses
+    import tempfile
+
+    from fresco_torch.attention.flash import flash_attention
+    from fresco_torch.ops.gemm import bmm
+    from fresco_torch.ops.gram_kernel import sign_gram_apply
+    from fresco_torch.pipeline.runner import FrescoPipeline, build_models
+    from fresco_torch.utils.guards import check_finite
+
+    n = 8
+    with tempfile.TemporaryDirectory(prefix="fresco_weights_") as root:
+        t0 = time.perf_counter()
+        src, dtypes, lora, sizes = write_checkpoints(root, seed, dev)
+        _sync(dev)
+        print(f"weights: wrote full-width checkpoints in {time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{k} {v / 2**20:.0f} MiB" for k, v in sizes.items()))
+        cfg = music_config(resolution=res, sd_path="runwayml/stable-diffusion-v1-5", use_freeu=True,
+                           gmflow_path=f"{root}/gmflow_sintel-0c07dcb3.pth", sod_path=f"{root}/epoch_resnet.pth",
+                           lora_path=f"{root}/lora.safetensors", lora_scale=LORA_SCALE)
+        t0 = time.perf_counter()
+        bundle = build_models(cfg, seed=seed, device=dev)
+        _sync(dev)
+        t_build = time.perf_counter() - t0
+    ls = bundle.load_seconds
+    print(f"weights: build_models from checkpoints {t_build:.2f} s (random init and LoRA merge included); "
+          "load seconds (read, convert, to the card): "
+          + "; ".join(f"{k} {v['read']:.3f} + {v['convert']:.3f} + {v['to_device']:.3f} = "
+                      f"{v['read'] + v['convert'] + v['to_device']:.3f}" for k, v in ls.items()))
+    if sorted(ls) != sorted(src):
+        fail(f"weights: loaded {sorted(ls)}, wrote {sorted(src)}")
+    if not bundle.unet.cfg.use_freeu:
+        fail("weights: the UNet was built without FreeU")
+    check_loaded(bundle, src, dtypes, lora)
+    del src
+
+    frames, flows, _ = make_inputs(seed, n, res)
+    flows_t = torch.from_numpy(flows).to(dev)
+    bundle.flow_fn = lambda a, b: flows_t
+    pipe = FrescoPipeline(cfg, bundle)
+    pipe.sync_phases = True
+    base = pipe._base_sampler_cfg
+    pipe._base_sampler_cfg = dataclasses.replace(base, guidance=dataclasses.replace(base.guidance, warp_mode="sparse"))
+    prompts, negs = prompts_for(cfg, n)
+    _sync(dev)
+    _reset_peak(dev)
+    flash_attention.launches = 0
+    sign_gram_apply.launches = 0
+    sign_gram_apply.launches_by_shape.clear()
+    bmm.launches = 0
+    t0 = time.perf_counter()
+    latents, _ = pipe._translate_batch(frames, prompts, negs, None, False)
+    images = pipe.decode(latents)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches,
+                "bmm": bmm.launches}
+    ph = pipe.phases.times
+    print(f"weights batch: {n} keyframes {res}x{res} on the loaded bundle (LoRA, FreeU, sparse warp, HED, "
+          f"EGNet), wall {wall:.2f} s, peak device memory {_peak_gib(dev):.2f} GiB, "
+          f"launches {launches}; phases (s, synchronized): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])))
+    sign_gram_by_shape("weights batch", gram_rows)
+    check_finite("weights_latents", latents)
+    if images.shape != (n, res, res, 3) or images.dtype != np.uint8:
+        fail(f"weights batch output {images.shape} {images.dtype}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"weights batch did not launch every kernel: {launches}")
+    del bundle, pipe, latents
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sparse_vs_dense(seed, dev, sparse_shapes, res)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1300,6 +1652,7 @@ def main() -> None:
     gemm_rows, gemm_err = phase_gemm(gen, dev)
     phase_aux(args.seed, dev)
     phase_e2e(args.seed, dev, gram_rows=gram_rows, pe_shape_ms=pe_shape_ms)
+    phase_weights(args.seed, dev, gram_rows)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

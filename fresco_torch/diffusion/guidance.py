@@ -5,19 +5,22 @@ Counterpart of ``fresco_tpu/diffusion/guidance.py:optimize_feature``
 decoder feature minimizes
 
   * a temporal loss — L1 between each frame and its flow-warped neighbour
-    on non-occluded pixels (both directions), through dense warp matrices
-    [F, hw, hw] built once per call; its gradient comes from autograd;
+    on non-occluded pixels (both directions); its gradient comes from
+    autograd.  The warp is built once per call: dense warp matrices
+    [F, hw, hw] (``warp_mode="dense"``, the default), or the 4-tap
+    structure of ``make_sparse_warp`` (``"sparse"``), whose backward is a
+    sorted segment sum with no scatter, so two runs give the same bits;
   * a spatial loss — L1 between the cosine gram of the feature and the
     reference gram C; its gradient is the closed form 2·sign(G − C)·v̂/N,
     through the sign-gram kernel when C is dense and in bf16, else the
     chunked plain path (``fresco_tpu`` guidance.py:385-412);
 
-then AdaIN-renormalizes to the input's statistics.  Only the JAX
-package's dense warp mode is ported (its sparse mode waits).
+then AdaIN-renormalizes to the input's statistics.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +42,10 @@ class GuidanceConfig:
     # a factored reference gram [B, hw, C] is materialized dense once per
     # call when it fits this budget (MB, in the gram dtype)
     dense_corr_max_mb: float = 600.0
+    # the temporal loss's warp: "dense" [F, hw, hw] matrices in the gram
+    # dtype, or "sparse" 4-tap gathers in float32 ("banded" is refused, as
+    # in fresco_tpu guidance.py:515-528)
+    warp_mode: str = "dense"
 
 
 def warp_taps(flow: torch.Tensor):
@@ -73,16 +80,77 @@ def warp_matrix(flow: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return wmat.scatter_add_(2, src, wt.to(dtype))
 
 
+class SparseWarp(NamedTuple):
+    """The bilinear warp as 4 taps per output pixel, and its transpose
+    sorted by source pixel (``fresco_tpu`` guidance.py:199)."""
+    src: torch.Tensor         # int64 [F, hw, 4] source pixel of each tap
+    wt: torch.Tensor          # f32 [F, hw, 4] its weight
+    out_sorted: torch.Tensor  # int64 [F, 4hw] the taps' output pixels, by source pixel
+    wt_sorted: torch.Tensor   # f32 [F, 4hw] their weights, in that order
+    offsets: torch.Tensor     # int64 [F*hw + 1] where each (frame, source pixel)'s run starts
+
+
+def make_sparse_warp(flow: torch.Tensor) -> SparseWarp:
+    """flow [F,h,w,2] -> the structure ``apply_sparse_warp`` needs: the
+    taps, and the (output pixel, weight) pairs sorted (stably) by source
+    pixel, with each source pixel's run delimited."""
+    src, wt = warp_taps(flow)
+    f, hw, t = src.shape
+    key = src.reshape(f, hw * t)
+    order = torch.argsort(key, dim=1, stable=True)
+    frame = torch.arange(f, device=flow.device)[:, None] * hw
+    runs = (torch.gather(key, 1, order) + frame).reshape(-1)
+    offsets = torch.searchsorted(runs, torch.arange(f * hw + 1, device=flow.device))
+    return SparseWarp(src, wt, order // t, torch.gather(wt.reshape(f, hw * t), 1, order), offsets)
+
+
+class _ApplySparseWarp(torch.autograd.Function):
+    """y[f, p] = Σ_t wt[f, p, t] · x[f, src[f, p, t]]; the backward is the
+    gather over the sorted transpose and a segment sum over each source
+    pixel's run, in a fixed order (no scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, x, warp: SparseWarp):
+        f, hw, d = x.shape
+        rows = x.reshape(f * hw, d)
+        idx = (torch.arange(f, device=x.device)[:, None, None] * hw + warp.src).reshape(f * hw, -1)
+        wt = warp.wt.reshape(f * hw, -1).to(x.dtype)
+        y = wt[:, :1] * rows.index_select(0, idx[:, 0])
+        for k in range(1, idx.shape[1]):
+            y = y + wt[:, k:k + 1] * rows.index_select(0, idx[:, k])
+        ctx.warp = warp
+        return y.reshape(f, hw, d)
+
+    @staticmethod
+    def backward(ctx, ct):
+        warp = ctx.warp
+        f, hw, d = ct.shape
+        gidx = (torch.arange(f, device=ct.device)[:, None] * hw + warp.out_sorted).reshape(-1)
+        rows = ct.reshape(f * hw, d).index_select(0, gidx) * warp.wt_sorted.reshape(-1, 1).to(ct.dtype)
+        dx = torch.segment_reduce(rows, "sum", offsets=warp.offsets, axis=0)
+        return dx.reshape(f, hw, d), None
+
+
+def apply_sparse_warp(x: torch.Tensor, warp: SparseWarp) -> torch.Tensor:
+    """``warp_matrix(flow) @ x`` for x [F, hw, d] in O(4·hw·d) work: four
+    row gathers; a deterministic backward (``_ApplySparseWarp``)."""
+    return _ApplySparseWarp.apply(x, warp)
+
+
 def temporal_loss(cs, fwd_warp, bwd_warp, fwd_occ, bwd_occ, chunk: int):
     """Bidirectional warp-consistency L1 (diffusion_hacked.py:461-466).
-    cs [chunk*F,h,w,C]; warps [F,hw,hw]; occs [F,h,w,1]."""
+    cs [chunk*F,h,w,C]; warps dense [F,hw,hw] or ``SparseWarp``; occs
+    [F,h,w,1]."""
     b, h, w, c = cs.shape
     f = b // chunk
     c1 = cs.reshape(chunk, f, h * w, c)
     c2 = torch.roll(c1, -1, dims=1)
 
-    def warp(x, wmat):
-        return torch.matmul(wmat, x.to(wmat.dtype)).to(cs.dtype)
+    def warp(x, wop):
+        if isinstance(wop, SparseWarp):  # fold (chunk, c) -> d
+            xd = x.permute(1, 2, 0, 3).reshape(f, h * w, chunk * c)
+            return apply_sparse_warp(xd, wop).reshape(f, h * w, chunk, c).permute(2, 0, 1, 3)
+        return torch.matmul(wop, x.to(wop.dtype)).to(cs.dtype)
 
     warped1 = warp(c1, bwd_warp).reshape(cs.shape)
     warped2 = warp(c2, fwd_warp).reshape(cs.shape)
@@ -139,8 +207,13 @@ def optimize_feature(sample, fwd_flow, bwd_flow, fwd_occ, bwd_occ, correlation,
         if do_temporal:
             bwd_flow_s, bwd_occ_s = prepare_flow_for_scale(bwd_flow, bwd_occ, (h, w), dilate_full_res=False)
             fwd_flow_s, fwd_occ_s = prepare_flow_for_scale(fwd_flow, fwd_occ, (h, w), dilate_full_res=False)
-            fwd_warp = warp_matrix(fwd_flow_s, gram_dtype)
-            bwd_warp = warp_matrix(bwd_flow_s, gram_dtype)
+            if cfg.warp_mode == "sparse":
+                fwd_warp, bwd_warp = make_sparse_warp(fwd_flow_s), make_sparse_warp(bwd_flow_s)
+            elif cfg.warp_mode == "dense":
+                fwd_warp, bwd_warp = warp_matrix(fwd_flow_s, gram_dtype), warp_matrix(bwd_flow_s, gram_dtype)
+            else:
+                raise ValueError(f"warp_mode={cfg.warp_mode!r} is not supported inside optimize_feature: "
+                                 "use 'dense' or 'sparse' (the JAX package refuses 'banded' too)")
         if do_spatial and corr_is_dense is None:
             corr_is_dense = correlation.shape[1] == correlation.shape[2]
         if do_spatial and not corr_is_dense:

@@ -15,6 +15,8 @@ Inference only: BatchNorms are frozen running-stats affine maps.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -224,6 +226,47 @@ class EGNet(nn.Module):
         return self._final(self._merge2_features(sal_feature, edge_feat), x.shape[1:3])
 
 
+def egnet_map(b) -> None:
+    """The reference's epoch_resnet.pth key map
+    (``fresco_tpu/models/egnet.py:convert_egnet``).  ``merge1.trans.0`` is
+    in the checkpoint and unused: the forward reaches only ``trans[1]``
+    and ``trans[-1]`` (reference model.py:67-74)."""
+    b.raw_conv("base/conv1", "base.conv1")
+    b.batch_norm("base/bn1", "base.bn1")
+    for li, (_, blocks, _, _) in enumerate(RESNET_SPECS, start=1):
+        for bi in range(blocks):
+            s, d = f"base.layer{li}.{bi}", f"base/layer{li}_{bi}"
+            for c in ("conv1", "conv2", "conv3"):
+                b.raw_conv(f"{d}/{c}", f"{s}.{c}")
+            for n in ("bn1", "bn2", "bn3"):
+                b.batch_norm(f"{d}/{n}", f"{s}.{n}")
+            if b.has(f"{d}/downsample_conv"):
+                b.raw_conv(f"{d}/downsample_conv", f"{s}.downsample.0")
+                b.batch_norm(f"{d}/downsample_bn", f"{s}.downsample.1")
+    for i in range(5):
+        b.raw_conv(f"convert_{i}/conv", f"convert.convert0.{i}.0")
+    for i in range(5):
+        for j in range(3):
+            b.raw_conv(f"m1_up_{i}/conv_{j}", f"merge1.up.{i}.{2 * j}")
+        b.raw_conv(f"m1_score_{i}", f"merge1.score.{i}")
+    b.raw_conv("m1_trans_1/conv", "merge1.trans.1.0")
+    b.raw_conv("m1_trans_final/conv", "merge1.trans.2.0")
+    for j in range(4):
+        b.raw_conv(f"m2_trans_{j}/conv", f"merge2.trans.0.{j}.0")
+        for k in range(3):
+            b.raw_conv(f"m2_up_{j}/conv_{k}", f"merge2.up.0.{j}.{2 * k}")
+        b.raw_conv(f"m2_score_{j}", f"merge2.score.0.{j}")
+    b.raw_conv("m2_final_0", "merge2.final_score.0")
+    b.raw_conv("m2_final_1", "merge2.final_score.2")
+
+
+def convert_egnet(sd, strict: bool = False) -> dict[str, torch.Tensor]:
+    """epoch_resnet.pth state dict -> the port's EGNet state dict."""
+    from fresco_torch.models.convert import _meta_keys, convert
+
+    return convert(sd, egnet_map, _meta_keys(EGNet), strict)
+
+
 def saliency_input(imgs_rgb: np.ndarray, device=None) -> torch.Tensor:
     """uint8 RGB [F, H, W, 3] -> EGNet input [F, H/2, W/2, 3] float32: BGR
     minus the mean, halved by half-pixel bilinear without antialiasing
@@ -245,5 +288,6 @@ def saliency_background_mask(egnet: EGNet, imgs_rgb, dilate_kernel: int = 7) -> 
 
 
 def make_saliency_fn(egnet: EGNet, dilate_kernel: int = 7):
-    """imgs_rgb uint8 [F, H, W, 3] -> background mask (``saliency_background_mask``)."""
-    return lambda imgs_rgb: saliency_background_mask(egnet, imgs_rgb, dilate_kernel)
+    """imgs_rgb uint8 [F, H, W, 3] -> background mask (``saliency_background_mask``);
+    ``.args[0]`` is the model."""
+    return functools.partial(saliency_background_mask, egnet, dilate_kernel=dilate_kernel)

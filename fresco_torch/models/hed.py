@@ -63,6 +63,26 @@ class HED(nn.Module):
         return torch.sigmoid(torch.mean(torch.stack(ups, dim=0), dim=0)[..., 0])
 
 
+def hed_map(b) -> None:
+    """The ControlNetHED.pth key map (``fresco_tpu/models/hed.py:convert_hed``):
+    ``norm`` is stored NCHW [1, 3, 1, 1]; each block's convs are counted
+    on the port's module."""
+    b.leaf("norm", "norm", "nchw")
+    for blk in range(1, len(HED_SPECS) + 1):
+        i = 0
+        while b.has(f"block{blk}/convs_{i}"):
+            b.raw_conv(f"block{blk}/convs_{i}", f"block{blk}.convs.{i}")
+            i += 1
+        b.raw_conv(f"block{blk}/projection", f"block{blk}.projection")
+
+
+def convert_hed(sd, strict: bool = False) -> dict[str, torch.Tensor]:
+    """ControlNetHED.pth state dict -> the port's HED state dict."""
+    from fresco_torch.models.convert import _meta_keys, convert
+
+    return convert(sd, hed_map, _meta_keys(HED), strict)
+
+
 def hed_detector(hed: HED, img: np.ndarray) -> np.ndarray:
     """uint8 RGB [H, W, 3] -> uint8 edge map [H, W] (HEDdetector.__call__),
     on the model's device."""

@@ -11,7 +11,10 @@ src/diffusion_hacked.py:491-816):
     block, and ``capture_refs`` (a list) collects the post-norm hidden
     states of every FRESCO self-attention layer in visit order — what the
     JAX package's ``sow("intermediates", "fresco_ref", x)`` records;
-  * ControlNet residuals are explicit inputs.
+  * ControlNet residuals are explicit inputs;
+  * ``use_freeu`` applies FreeU (``ops/freeu.py``) before each up-block
+    resnet whose input has the last or second-last block width
+    (``fresco_tpu/models/unet.py:301-308``).
 
 Every UNet self-attention goes through the flash kernel; the 77-key
 text cross-attention stays plain tensor math, as in the JAX package.
@@ -39,6 +42,7 @@ from fresco_torch.models.layers import (
     TimestepEmbedding,
     timestep_embedding,
 )
+from fresco_torch.ops.freeu import apply_freeu_to_skip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,8 +241,6 @@ def embed_time(mod: nn.Module, timestep, batch: int, ch: int, dtype, device):
 class UNet2DCondition(nn.Module):
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
-        if cfg.use_freeu:
-            raise NotImplementedError("FreeU (ops/freeu.py) is not ported yet")
         self.cfg = cfg
         c = cfg
         chans = c.block_out_channels
@@ -303,7 +305,13 @@ class UNet2DCondition(nn.Module):
             is_fresco = i in c.fresco_up_blocks
             blk_fresco = fresco if (has_attn and is_fresco) else None
             for j in range(c.layers_per_block + 1):
-                h = torch.cat([h, skips.pop().to(h.dtype)], dim=-1)
+                skip = skips.pop()
+                if c.use_freeu:  # at every resnet whose input width is the last or second-last
+                    if h.shape[-1] == chans[-1]:
+                        h, skip = apply_freeu_to_skip(h, skip, c.freeu_b1, c.freeu_s1, chans[-1] // 2)
+                    elif h.shape[-1] == chans[-2]:
+                        h, skip = apply_freeu_to_skip(h, skip, c.freeu_b2, c.freeu_s2, chans[-2] // 2)
+                h = torch.cat([h, skip.to(h.dtype)], dim=-1)
                 h = getattr(self, f"up_{i}_res_{j}")(h, temb)
                 if has_attn:
                     h = getattr(self, f"up_{i}_attn_{j}")(

@@ -10,14 +10,20 @@ inter-batch latent record carried; ``translate_keyframe_files`` wraps it
 with the video file, the PNGs under ``save_path`` and ``reuse``.
 ``evaluate_consistency`` scores a directory of frames.
 
-Weights: every model gets random weights, Flax's default initializers
-drawn from a ``torch.Generator`` seeded with ``seed``; Flax weights of
-the JAX package load through ``models/convert.py``.  Loading torch
-checkpoints (GMFlow, HED, EGNet, SD) is not ported yet.  The control
-detector is HED for ``controlnet_type: hed`` when HED weights are given
-(``random_aux_weights=True``), else OpenCV's canny where ``cv2`` can be
-imported, else none (``ModelBundle.detector`` must then be set).
-``ModelBundle.flow_fn`` overrides GMFlow as the flow source.
+Weights: every model first gets random weights, Flax's default
+initializers drawn from a ``torch.Generator`` seeded with ``seed``; then
+``build_models`` loads the checkpoints it finds in
+``scripts/fetch_weights.py``'s layout (``_maybe_load_pretrained``: SD1.5
+UNet / VAE / text encoder under ``sd_path``, ``vae_path``, the ControlNet
+under ``controlnet_path`` or ``sd-controlnet-<type>``, GMFlow at
+``gmflow_path``, HED beside it, EGNet at ``sod_path``) through
+``models/convert.py``, and merges ``lora_path``.  The control detector
+is HED for ``controlnet_type: hed`` (its checkpoint, or random weights
+with ``random_aux_weights=True``), else OpenCV's canny where ``cv2`` can
+be imported, else none (``ModelBundle.detector`` must then be set);
+the depth, MLSD and OpenPose detectors are not ported and raise when
+their checkpoint is present.  ``ModelBundle.flow_fn`` overrides GMFlow
+as the flow source.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from fresco_torch.diffusion.sampler import FrescoSampler, FrescoState, SamplerCo
 from fresco_torch.diffusion.scheduler import DDPMScheduler
 from fresco_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from fresco_torch.models.controlnet import ControlNet
+from fresco_torch.models.convert import load_into, load_torch_state_dict
 from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
 from fresco_torch.models.layers import cast_model, init_flax_default_
 from fresco_torch.models.unet import UNet2DCondition, UNetConfig
@@ -44,7 +51,7 @@ from fresco_torch.models.vae import AutoencoderKL, VAEConfig
 from fresco_torch.ops.image import resize_image, unit_range_to_uint8
 from fresco_torch.pipeline import prepare
 from fresco_torch.pipeline.keyframes import read_video_rgb, select_keyframes_from_frames
-from fresco_torch.pipeline.text import encode_prompts, make_tokenizer
+from fresco_torch.pipeline.text import HashTokenizer, encode_prompts, make_tokenizer
 from fresco_torch.utils.profiling import PhaseTimes, phase_timer
 
 
@@ -64,12 +71,14 @@ class ModelBundle:
     gmflow: GMFlow | None = None
     # uint8 RGB [F,H,W,3] -> background mask [F,H/2,W/2,1] (EGNet)
     saliency_fn: Callable[[np.ndarray], torch.Tensor] | None = None
+    # seconds spent on each loaded checkpoint: {model: {read, convert, to_device}}
+    load_seconds: dict = dataclasses.field(default_factory=dict)
 
 
 def _no_detector(img: np.ndarray) -> np.ndarray:
     raise NotImplementedError(
-        "no control detector: HED needs weights (build_models(random_aux_weights=True); loading "
-        "ControlNetHED.pth is not ported) and canny needs OpenCV (cv2); set ModelBundle.detector")
+        "no control detector: HED needs ControlNetHED.pth beside gmflow_path (or "
+        "build_models(random_aux_weights=True)) and canny needs OpenCV (cv2); set ModelBundle.detector")
 
 
 def _canny_detector(img: np.ndarray, low: int = 50, high: int = 100) -> np.ndarray:
@@ -119,32 +128,29 @@ def aux_dtype(config: FrescoConfig) -> torch.dtype:
     return _AUX_DTYPES.get(config.aux_dtype, torch.float32)
 
 
-def _checkpoint_not_ported(path: str, what: str) -> None:
-    if path and os.path.exists(str(path)):
-        raise NotImplementedError(
-            f"loading the {what} checkpoint {path} is not ported yet; move it away to run with "
-            "random weights, or pass random_aux_weights=True")
-
-
 def build_models(config: FrescoConfig, *, tiny: bool = False, seed: int = 0,
                  device: torch.device | str | None = None,
-                 random_aux_weights: bool = False) -> ModelBundle:
-    """Random-weight model stack at full SD1.5 width or tiny widths.
+                 random_aux_weights: bool = False, load_weights: bool = True) -> ModelBundle:
+    """The model stack at full SD1.5 width or tiny widths.
 
     Modules are built on the meta device and materialized once on
-    ``device``; weights are drawn from a ``torch.Generator`` seeded with
-    ``seed`` on that device (``None``: the card; it raises without one).
-    The UNet, ControlNet and VAE run in ``config.dtype``, the text
-    encoder in float32, EGNet in ``config.aux_dtype``, GMFlow in float32 on
-    weights rounded to ``config.aux_dtype`` and HED in float32.
+    ``device``, with random weights drawn from a ``torch.Generator`` seeded
+    with ``seed`` on that device (``None``: the card; it raises without
+    one).  With ``load_weights``, the checkpoints found replace them (SD
+    weights only at full width, ``_maybe_load_pretrained``) and a LoRA is
+    merged at any width (``_maybe_apply_lora``), in the checkpoint's dtype,
+    before the cast below; a run without checkpoints draws the same
+    weights as one with ``load_weights=False``.  The UNet, ControlNet and
+    VAE run in ``config.dtype``, the text encoder in float32, EGNet in
+    ``config.aux_dtype``, GMFlow in float32 on weights rounded to
+    ``config.aux_dtype`` and HED in float32.
 
-    ``random_aux_weights=True`` gives HED (for ``controlnet_type: hed``,
-    full width only) and EGNet (for ``use_saliency``) random weights, so
-    that the control detector and background smoothing run without their
-    checkpoints.  Without it, HED and EGNet run only from their
-    checkpoints, whose loading is not ported: a present checkpoint raises,
-    a missing one leaves canny (with ``cv2``) or no detector, and no
-    saliency, as in the JAX package."""
+    HED (for ``controlnet_type: hed``, full width only) and EGNet (for
+    ``use_saliency``) load their checkpoints; ``random_aux_weights=True``
+    gives them random weights where the checkpoint is missing, so that the
+    control detector and background smoothing run without it.  Without
+    either, the detector falls back to canny (with ``cv2``) or none, and
+    saliency is off, as in the JAX package."""
     device = resolve_device(device)
     if tiny:
         ucfg, vcfg, ccfg = UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny()
@@ -156,39 +162,140 @@ def build_models(config: FrescoConfig, *, tiny: bool = False, seed: int = 0,
                           freeu_s2=config.freeu_s2)
         vcfg, ccfg, gcfg = VAEConfig(), CLIPTextConfig(), GMFlowConfig()
         cond_embed = (16, 32, 96, 256)
-    if not random_aux_weights:
-        _checkpoint_not_ported(config.gmflow_path, "GMFlow")
     # the cross-attention width is the text encoder's (Flax infers it from
     # the context; the tiny configs leave cross_attention_dim unused)
     ucfg = dataclasses.replace(ucfg, cross_attention_dim=ccfg.hidden_size)
     with torch.device("meta"):
-        unet = UNet2DCondition(ucfg)
-        vae = AutoencoderKL(vcfg)
-        controlnet = ControlNet(ucfg, cond_embed)
-        text = CLIPTextEncoder(ccfg)
-        gmflow = GMFlow(gcfg)
+        mods = {"unet": UNet2DCondition(ucfg), "vae": AutoencoderKL(vcfg),
+                "controlnet": ControlNet(ucfg, cond_embed), "text": CLIPTextEncoder(ccfg),
+                "gmflow": GMFlow(gcfg)}
     gen = torch.Generator(device=device).manual_seed(seed)
+    for name, m in mods.items():
+        mods[name] = init_flax_default_(m.to_empty(device=device), gen)
+    load_seconds: dict = {}
+    loaded = _maybe_load_pretrained(config, mods, load_seconds) if load_weights and not tiny else {}
+    if load_weights:
+        loaded = _maybe_apply_lora(loaded, mods, config)
+    for name, sd in loaded.items():
+        t0 = time.perf_counter()
+        load_into(mods[name], sd)
+        _loaded(name, load_seconds, device, t0)
     dt = model_dtype(config)
-    mods = []
-    for m, d in ((unet, dt), (vae, dt), (controlnet, dt), (text, torch.float32)):
-        m = m.to_empty(device=device)
-        init_flax_default_(m, gen)
-        mods.append(cast_model(m, d).eval().requires_grad_(False))
-    unet, vae, controlnet, text = mods
+    unet, vae, controlnet, text = (
+        cast_model(mods[n], d).eval().requires_grad_(False)
+        for n, d in (("unet", dt), ("vae", dt), ("controlnet", dt), ("text", torch.float32)))
     # every GMFlow weight rounded to aux_dtype, norms included (the JAX
     # package casts the whole tree), and held in float32: the forward
     # computes in float32 in both packages (models/gmflow/model.py)
-    gmflow = init_flax_default_(gmflow.to_empty(device=device), gen)
-    gmflow = gmflow.to(aux_dtype(config)).float().eval().requires_grad_(False)
+    gmflow = mods["gmflow"].to(aux_dtype(config)).float().eval().requires_grad_(False)
 
+    tokenizer = _make_tokenizer(config, ccfg, text_loaded="text" in load_seconds)
+    detector = _build_detector(config, tiny, device, gen, random_aux_weights, load_seconds)
+    saliency_fn = _build_saliency(config, device, gen, random_aux_weights, load_seconds)
+    return ModelBundle(unet, vae, controlnet, text,
+                       DDPMScheduler(num_inference_steps=config.num_inference_steps),
+                       tokenizer, detector, device, gmflow=gmflow, saliency_fn=saliency_fn,
+                       load_seconds=load_seconds)
+
+
+def _make_tokenizer(config: FrescoConfig, ccfg: CLIPTextConfig, text_loaded: bool):
+    """CLIP's tokenizer from ``sd_path``'s files, else ``HashTokenizer``
+    (``fresco_tpu/pipeline/text.py:66-72``); says so when real text-encoder
+    weights would get hashed ids."""
     tokenizer = make_tokenizer(
         _local_ckpt_dir(config.sd_path, os.path.dirname(str(config.gmflow_path)) or "."),
         ccfg.vocab_size)
-    return ModelBundle(unet, vae, controlnet, text,
-                       DDPMScheduler(num_inference_steps=config.num_inference_steps),
-                       tokenizer, _build_detector(config, tiny, device, gen, random_aux_weights), device,
-                       gmflow=gmflow,
-                       saliency_fn=_build_saliency(config, device, gen, random_aux_weights))
+    if text_loaded and isinstance(tokenizer, HashTokenizer):
+        print("[fresco_torch] text encoder weights loaded, but no CLIP tokenizer (needs transformers and "
+              "the tokenizer files under sd_path): prompts are hashed by HashTokenizer, not CLIP's BPE")
+    return tokenizer
+
+
+def _find(base, sub: str, names) -> str | None:
+    """The first of ``names`` under ``base/sub`` that exists."""
+    if not base or not os.path.isdir(str(base)):
+        return None
+    for n in names:
+        p = os.path.join(base, sub, n) if sub else os.path.join(base, n)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def _read_checkpoint(path: str, convert_fn, times: dict, name: str) -> dict[str, torch.Tensor]:
+    """Read and convert one checkpoint, recording the seconds of each."""
+    t0 = time.perf_counter()
+    raw = load_torch_state_dict(path)
+    t1 = time.perf_counter()
+    sd = convert_fn(raw)
+    times[name] = {"path": path, "read": t1 - t0, "convert": time.perf_counter() - t1}
+    return sd
+
+
+def _loaded(name: str, times: dict, device, t0: float) -> None:
+    """Record the seconds since ``t0`` as ``name``'s move to ``device`` and
+    report a checkpoint's load (LoRA-only merges into random weights have
+    no checkpoint and are not reported)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t = times.setdefault(name, {})
+    t["to_device"] = time.perf_counter() - t0
+    if "path" in t:
+        print(f"[fresco_torch] loaded {name} weights from {t['path']} (read {t['read']:.2f} s, "
+              f"convert {t['convert']:.2f} s, to {device.type} {t['to_device']:.2f} s)")
+
+
+def _maybe_load_pretrained(config: FrescoConfig, mods: dict, times: dict | None = None) -> dict:
+    """{model: state dict} of the local torch / diffusers checkpoints found
+    (``fresco_tpu/pipeline/runner.py:_maybe_load_pretrained``): repo-id
+    config values resolve to the ``scripts/fetch_weights.py`` layout
+    through ``_local_ckpt_dir``; ``vae_path`` overrides ``sd_path/vae``; the
+    ControlNet is ``controlnet_path`` or ``sd-controlnet-<type>``.  State
+    dicts are in the checkpoint's dtypes, keyed for ``mods``' modules."""
+    from fresco_torch.models import convert as C
+    from fresco_torch.models.gmflow.convert import gmflow_map
+
+    times = {} if times is None else times
+    ckpt_dir = os.path.dirname(str(config.gmflow_path)) or "."
+    sd_dir = _local_ckpt_dir(config.sd_path, ckpt_dir) or str(config.sd_path)
+    vae_dir = _local_ckpt_dir(config.vae_path, ckpt_dir)
+    cn_dir = (_local_ckpt_dir(config.controlnet_path, ckpt_dir)
+              or _local_ckpt_dir(f"sd-controlnet-{config.controlnet_type}", ckpt_dir))
+    diffusers = ["diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin"]
+    specs = [("unet", _find(sd_dir, "unet", diffusers), C.sd_key_map("unet", mods["unet"].cfg)),
+             ("vae", _find(vae_dir or sd_dir, "" if vae_dir else "vae", diffusers),
+              C.sd_key_map("vae", mods["vae"].cfg)),
+             ("text", _find(sd_dir, "text_encoder", ["model.safetensors", "pytorch_model.bin"]),
+              C.sd_key_map("text", mods["text"].cfg)),
+             ("controlnet", _find(cn_dir, "", diffusers), C.sd_key_map("controlnet", mods["controlnet"].cfg))]
+    if config.gmflow_path and os.path.exists(str(config.gmflow_path)):
+        specs.append(("gmflow", str(config.gmflow_path), gmflow_map))
+    out = {}
+    for name, path, key_map in specs:
+        if path:
+            own = mods[name].state_dict().keys()
+            out[name] = _read_checkpoint(path, lambda raw: C.convert(raw, key_map, own), times, name)
+    return out
+
+
+def _maybe_apply_lora(loaded: dict, mods: dict, config: FrescoConfig) -> dict:
+    """Merge ``config.lora_path`` (kohya) into the UNet and text encoder
+    (``fresco_tpu/pipeline/runner.py:316-336``): into their loaded state
+    dicts, else into their random weights."""
+    if not config.lora_path or not os.path.exists(str(config.lora_path)):
+        return loaded
+    from fresco_torch.models.lora import merge_lora
+
+    lora_sd = load_torch_state_dict(str(config.lora_path))
+    counts = {}
+    for name, target in (("unet", "lora_unet_"), ("text", "lora_te_")):
+        sd = loaded.get(name)
+        if sd is None:
+            sd = dict(mods[name].state_dict())
+        loaded[name], counts[name] = merge_lora(sd, lora_sd, config.lora_scale, target=target)
+    print(f"[fresco_torch] merged LoRA {config.lora_path} (scale={config.lora_scale}): "
+          f"{counts['unet']} unet + {counts['text']} text modules")
+    return loaded
 
 
 def _random_module(cls, device, gen, dtype):
@@ -198,30 +305,71 @@ def _random_module(cls, device, gen, dtype):
     return m.to(dtype).eval().requires_grad_(False)
 
 
-def _build_detector(config: FrescoConfig, tiny: bool, device, gen, random_aux_weights: bool):
-    """The control detector (fresco_tpu runner.py:172-227)."""
-    if config.controlnet_type == "hed" and not tiny:
-        from fresco_torch.models.hed import HED, hed_detector
+def _loaded_module(cls, path: str, convert_fn, device, dtype, times: dict, name: str):
+    """``cls()`` on ``device`` with the weights of checkpoint ``path``, cast to ``dtype``."""
+    sd = _read_checkpoint(path, convert_fn, times, name)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        m = cls()
+    m = m.to_empty(device=device)
+    load_into(m, sd)
+    m = m.to(dtype).eval().requires_grad_(False)
+    _loaded(name, times, device, t0)
+    return m
 
-        hed_path = os.path.join(os.path.dirname(str(config.gmflow_path)) or ".", "ControlNetHED.pth")
+
+# detectors of the JAX package that are not ported yet: controlnet_type ->
+# (checkpoint beside gmflow_path, the detector's name)
+_UNPORTED_DETECTORS = {"depth": ("dpt_hybrid-midas-501f0c75.pt", "MiDaS"),
+                       "mlsd": ("mlsd_large_512_fp32.pth", "MLSD"),
+                       "openpose": ("body_pose_model.pth", "OpenPose"),
+                       "pose": ("body_pose_model.pth", "OpenPose")}
+
+
+def _build_detector(config: FrescoConfig, tiny: bool, device, gen, random_aux_weights: bool,
+                    times: dict | None = None):
+    """The control detector (fresco_tpu runner.py:172-227)."""
+    ctype = config.controlnet_type
+    ckpt_dir = os.path.dirname(str(config.gmflow_path)) or "."
+    times = {} if times is None else times
+    if ctype == "hed" and not tiny:
+        from fresco_torch.models.hed import HED, convert_hed, hed_detector
+
+        hed_path = os.path.join(ckpt_dir, "ControlNetHED.pth")
+        if os.path.exists(hed_path):
+            return functools.partial(
+                hed_detector, _loaded_module(HED, hed_path, convert_hed, device, torch.float32, times, "hed"))
         if random_aux_weights:
             return functools.partial(hed_detector, _random_module(HED, device, gen, torch.float32))
-        _checkpoint_not_ported(hed_path, "HED")
+        print("[fresco_torch] HED weights not found; falling back to canny")
+    if ctype in _UNPORTED_DETECTORS and not tiny:
+        fname, what = _UNPORTED_DETECTORS[ctype]
+        path = os.path.join(ckpt_dir, fname)
+        if os.path.exists(path):
+            raise NotImplementedError(
+                f"controlnet_type {ctype!r}: the {what} detector is not ported yet, and its checkpoint "
+                f"{path} is present (the JAX package would run it); move the file away to use canny")
+        print(f"[fresco_torch] {what} weights not found; falling back to canny")
     if _have_cv2():
         return functools.partial(_canny_detector, low=config.canny_low, high=config.canny_high)
     return _no_detector
 
 
-def _build_saliency(config: FrescoConfig, device, gen, random_aux_weights: bool):
-    """The EGNet background-mask function, or None without weights."""
+def _build_saliency(config: FrescoConfig, device, gen, random_aux_weights: bool, times: dict | None = None):
+    """The EGNet background-mask function: from ``sod_path`` where it
+    exists, else random weights with ``random_aux_weights``, else None."""
     if not config.use_saliency:
         return None
-    if not random_aux_weights:
-        _checkpoint_not_ported(config.sod_path, "EGNet")
-        return None
-    from fresco_torch.models.egnet import EGNet, make_saliency_fn
+    from fresco_torch.models.egnet import EGNet, convert_egnet, make_saliency_fn
 
-    return make_saliency_fn(_random_module(EGNet, device, gen, aux_dtype(config)))
+    if config.sod_path and os.path.exists(str(config.sod_path)):
+        eg = _loaded_module(EGNet, str(config.sod_path), convert_egnet, device, aux_dtype(config),
+                            {} if times is None else times, "egnet")
+    elif random_aux_weights:
+        eg = _random_module(EGNet, device, gen, aux_dtype(config))
+    else:
+        return None
+    return make_saliency_fn(eg)
 
 
 class FrescoPipeline:

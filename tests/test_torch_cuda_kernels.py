@@ -18,7 +18,11 @@ same S (in bf16, S itself is compared bit for bit) and the f32 outputs
 agree to 1e-5 relative Frobenius.  Batched
 GEMM: float32 sums of exact bf16 products in two orders, 1e-5 relative
 Frobenius, at ragged shapes (M, N, K that no tile divides, K and N not
-multiples of 8) and in the guidance layout.
+multiples of 8) and in the guidance layout.  The sparse warp (plain
+tensor code, no kernel of its own): its backward bit-identical across
+two calls, and within 1e-5 relative Frobenius of the dense matrix's
+transpose product.  Checkpoint tensors read on the host move to the card
+unchanged.
 """
 import pytest
 import torch
@@ -328,3 +332,45 @@ def test_bmm_kernel_matches_plain(cuda_device, xshape, m):
     ref = bmm_plain(a, x)
     assert out.shape == ref.shape and out.dtype == torch.float32
     assert ((out - ref).norm() / ref.norm()).item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw_side,d", [(8, 2560), (32, 2560), (64, 1280)])
+def test_sparse_warp_backward_is_deterministic(cuda_device, hw_side, d):
+    """The sparse warp's backward (a gather over the sorted transpose and a
+    segment sum, no scatter-add) gives the same bits twice on the card, and
+    the dense matrix's product to 1e-5 relative Frobenius in float32."""
+    from fresco_torch.diffusion.guidance import apply_sparse_warp, make_sparse_warp, warp_matrix
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    flow = torch.randn(8, hw_side, hw_side, 2, device=cuda_device, generator=g) * 3
+    x = torch.randn(8, hw_side * hw_side, d, device=cuda_device, generator=g)
+    ct = torch.randn_like(x)
+    warp = make_sparse_warp(flow)
+    grads = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(apply_sparse_warp(xr, warp), xr, ct)
+        grads.append(gx)
+    assert torch.equal(grads[0].view(torch.int32), grads[1].view(torch.int32))
+    dense = warp_matrix(flow)
+    ref = torch.matmul(dense.transpose(1, 2), ct)
+    assert ((grads[0] - ref).norm() / ref.norm()).item() < 1e-5
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_on_cuda(cuda_device, tmp_path):
+    """Checkpoint tensors read on the host move to the card unchanged."""
+    from fresco_torch.models.convert import read_safetensors, write_safetensors
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    src = {"f32": torch.randn(33, 7, device=cuda_device, generator=g),
+           "f16": torch.randn(5, device=cuda_device, generator=g).half(),
+           "bf16": torch.randn(3, 4, device=cuda_device, generator=g).bfloat16(),
+           "i64": torch.arange(77, device=cuda_device)[None]}
+    path = str(tmp_path / "x.safetensors")
+    write_safetensors(path, src)
+    got = {k: v.to(cuda_device) for k, v in read_safetensors(path).items()}
+    for k, v in src.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape
+        assert torch.equal(got[k], v), k
