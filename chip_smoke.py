@@ -1,6 +1,7 @@
 """GPU smoke test of fresco_torch: kernels against their plain versions,
 then one full-width keyframe batch and one full-width propagation interval
-through the pipeline.
+through the pipeline, the loaded-weights batch and the propagation entry
+points.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit:
@@ -94,7 +95,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                sparse warp mode (flash, sign-gram and bmm must launch);
                then the sparse warp against the dense one at the four
                decoder-stage shapes (gradients, determinism, one
-               optimize_feature call in each mode, timed).
+               optimize_feature call in each mode, timed);
+ 13. entry points: a 17-frame 512x640 clip (keys 0, 6, 16) through
+               blend_video_frames(n_devices=1), then its two intervals'
+               chains serially (_synthesize_chain_pair) and as one wave over
+               [cuda:0] * 4 (_synthesize_chain_wave): bit-equal, both walls,
+               the row_gather and patch_eval counters must move;
+               ebsynth_cli.run at 512x640 (style + two guides) equal to
+               synthesize with TorchDraws(0), the error .bin read back, and
+               ebsynth_cli.main on PNG files where Pillow imports; the native
+               C++ backend at 128x160 (identity reconstruction, and against
+               jump-flood on the card), with os.cpu_count(); default_flow_fn
+               from a full-width GMFlow checkpoint equal to its module and to
+               consistency_flow_fn's loaded GMFlow (F13); CLIP ViT-L/14 with
+               its projection written as a CLIPModel .safetensors, loaded
+               bit-equal by make_clip_image_encoder, its embeddings of two
+               frames within 1e-4 of the same module in float64 on the host,
+               and evaluate_translation on 32 frames at 512 px with
+               frame_similarity_is_clip true.
+               Every line carries the card's name and power limit.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
@@ -1617,6 +1636,284 @@ def phase_weights(seed: int, dev, gram_rows=None, res: int = 512, sparse_shapes=
     sparse_vs_dense(seed, dev, sparse_shapes, res)
 
 
+# ---------------------------------------------------------------- entry points (phase 13)
+WAVE_KEYS = (0, 6, 16)      # a 17-frame clip, unequal intervals: the chains end at different steps
+WAVE_DEVICES = 4            # [cuda:0] * 4: every chain of the wave on the one card
+NATIVE_HW = (128, 160)      # the host backend's two easy cases
+# the native backend on easy cases (tests/test_native_patchmatch.py's): mean
+# |out - style| inside a 6-px margin; checker guides reconstruct the style,
+# random guides make the identity match unambiguous for both backends.  Sound
+# runs read 0.000-0.072 and 0.000-0.542 (seeds 0-2, 128x160); an NNF off by
+# one pixel reads about 85 (printed), and each limit allows about 1-2 % of
+# the pixels mapped wrong
+NATIVE_RECON_MAX = 1.0
+NATIVE_VS_JUMPFLOOD_MAX = 2.0
+CLIP_FRAMES, CLIP_RES = 32, 512
+CLIP_CHECK_FRAMES = 2       # encoded on the card and again in float64 on the host
+CLIP_MAX_ABS = 1e-4         # on the unit-norm embeddings, float32 (no TF32) against float64
+CARD = "card not read"      # nvidia-smi's name and power limit, set in main
+
+
+def phase_waves(seed: int, dev, hw=PROP_HW):
+    """Interval waves on one card: ``_synthesize_chain_wave`` over
+    [dev] * 4 against ``_synthesize_chain_pair`` per interval, bit for bit;
+    ``blend_video_frames(n_devices=1)`` on the same clip as the serial
+    stage.  Returns the walls."""
+    from fresco_torch.propagate.gather import gather_rows
+    from fresco_torch.propagate.patch_eval import patch_eval
+    from fresco_torch.propagate.patchmatch import PatchMatchConfig
+    from fresco_torch.propagate.video_blend import (
+        _FlowCache, _stream_seed, _synthesize_chain_pair, _synthesize_chain_wave, blend_video_frames)
+
+    keys = list(WAVE_KEYS)
+    n = keys[-1] + 1
+    frames, flows, _ = make_inputs(seed, n, hw)
+    truth = [style_of(f) for f in frames]
+    flow_fn = pair_flow_fn(frames, flows, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = blend_video_frames(dict(enumerate(frames)), {k: truth[k] for k in keys}, keys, flow_fn=flow_fn,
+                             n_devices=1, device=dev)
+    _sync(dev)
+    wall_blend = time.perf_counter() - t0
+    psnr = _psnr(out, truth, [i for i in range(n) if i not in keys])
+
+    fc = _FlowCache(flow_fn, dev)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    wave = []
+    for seq_i, (beg, end) in enumerate(zip(keys[:-1], keys[1:])):
+        seq = [t(frames[i]) for i in range(beg, end + 1)]
+        js = list(range(end - beg - 1))
+        flows_pair = (fc.get_batch(seq, js, [f"f{beg}_{j}" for j in js]),
+                      fc.get_batch(seq[::-1], js, [f"b{end}_{j}" for j in js]))
+        wave.append((seq_i, (t(truth[beg]), t(truth[end])), (seq, seq[::-1]), flows_pair))
+    cfg = PatchMatchConfig()
+    _sync(dev)
+    t0 = time.perf_counter()
+    serial = {w[0]: _synthesize_chain_pair(*w[1:], cfg, _stream_seed(seed, w[0])) for w in wave}
+    _sync(dev)
+    wall_serial = time.perf_counter() - t0
+    gather_rows.launches = 0
+    patch_eval.launches = 0
+    t0 = time.perf_counter()
+    waved = _synthesize_chain_wave(wave, cfg, seed, [dev] * WAVE_DEVICES)
+    _sync(dev)
+    wall_wave = time.perf_counter() - t0
+    launches = {"row_gather": gather_rows.launches, "patch_eval": patch_eval.launches}
+    same = all(torch.equal(a, b) for s in serial for d in range(2) for part in range(2)
+               for a, b in zip(serial[s][d][part], waved[s][d][part]))
+    same = same and all(len(serial[s][d][p]) == len(waved[s][d][p]) for s in serial for d in range(2) for p in range(2))
+    print(f"waves: {n} frames {hw[0]}x{hw[1]}, keys {keys}; blend_video_frames(n_devices=1) wall {wall_blend:.2f} s, "
+          f"PSNR vs truth {psnr:.3f} dB; chains: serial (_synthesize_chain_pair per interval) {wall_serial:.2f} s, "
+          f"wave over [{dev}] * {WAVE_DEVICES} {wall_wave:.2f} s, "
+          f"bit-equal {same}, wave launches {launches} ({CARD})")
+    if not same:
+        fail("waves: the wave's chains differ from the serial chain pairs")
+    if not psnr >= PROP_PSNR_FLOOR:
+        fail(f"waves: blend_video_frames PSNR {psnr} below {PROP_PSNR_FLOOR}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"waves did not launch every propagation kernel: {launches}")
+    return {"blend_serial_s": wall_blend, "chains_serial_s": wall_serial, "chains_wave_s": wall_wave}
+
+
+def phase_ebsynth(seed: int, dev, hw=PROP_HW):
+    """``ebsynth_cli.run`` (style plus two guides) against ``synthesize``
+    called directly with ``TorchDraws(0)``; ``write_error_bin`` read back;
+    ``main`` on PNG files where Pillow imports."""
+    import os
+    import tempfile
+
+    from fresco_torch.propagate import ebsynth_cli
+    from fresco_torch.propagate.patchmatch import TorchDraws, synthesize
+    from fresco_torch.propagate.video_blend import _codec, read_bgr, write_bgr
+
+    frames, _, detector = make_inputs(seed + 1, 2, hw)
+    style = style_of(frames[0])
+    edges = [np.repeat(detector(f)[..., None], 3, -1) for f in frames]
+    opts = ebsynth_cli.parse_args("-style s -guide a b -weight 6 -guide c d -weight 0.5 -backend cuda".split())
+    _sync(dev)
+    t0 = time.perf_counter()
+    out, err = ebsynth_cli.run(style, [frames[0], edges[0]], [frames[1], edges[1]], [6.0, 0.5], opts, dev)
+    wall = time.perf_counter() - t0
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)  # noqa: E731
+    wpc = torch.tensor([2.0] * 3 + [0.5 / 3] * 3, device=dev)
+    ref, ref_err, _ = synthesize(f(style), f(np.concatenate([frames[0], edges[0]], -1)),
+                                 f(np.concatenate([frames[1], edges[1]], -1)), wpc, ebsynth_cli.patch_config(opts),
+                                 draws=TorchDraws(0, dev))
+    same = (np.array_equal(out, ref.clamp(0, 255).to(torch.uint8).cpu().numpy())
+            and np.array_equal(err, ref_err.cpu().numpy()))
+    with tempfile.TemporaryDirectory(prefix="fresco_ebsynth_") as root:
+        ebsynth_cli.write_error_bin(f"{root}/e.bin", err)
+        raw = open(f"{root}/e.bin", "rb").read()
+        count = int(np.frombuffer(raw[:8], np.int64)[0])
+        bin_ok = count == hw[0] * hw[1] and np.array_equal(np.frombuffer(raw[8:], np.float32), err.ravel())
+        try:
+            _codec()
+        except ImportError as e:
+            png, png_ok = f"main on PNG files not run ({e})", True
+        else:
+            for name, img in (("s", style), ("a", frames[0]), ("b", frames[1]), ("c", edges[0]), ("d", edges[1])):
+                write_bgr(f"{root}/{name}.png", img)
+            ebsynth_cli.main(f"-style {root}/s.png -guide {root}/a.png {root}/b.png -weight 6 -guide {root}/c.png "
+                             f"{root}/d.png -weight 0.5 -backend cuda -output {root}/o.png -device {dev}".split())
+            png_ok = np.array_equal(read_bgr(f"{root}/o.png"), out) and os.path.exists(f"{root}/o.bin")
+            png = f"main on PNG files (Pillow) equal to run: {png_ok}"
+    print(f"ebsynth_cli: run at {hw[0]}x{hw[1]} (style + 2 guides, -backend cuda) {wall * 1e3:.1f} ms, equal to "
+          f"synthesize with TorchDraws(0): {same}; error .bin count {count} round-trips: {bin_ok}; {png} ({CARD})")
+    if not (same and bin_ok and png_ok):
+        fail("ebsynth_cli: run, the error map or main disagrees")
+
+
+def phase_native(seed: int, dev, hw=NATIVE_HW):
+    """The C++ serpentine backend through ``synthesize(backend="native")``:
+    identity reconstruction, and the easy case against jump-flood on the
+    card (tests/test_native_patchmatch.py's checks)."""
+    import os
+
+    from fresco_torch.propagate.native import build_library
+    from fresco_torch.propagate.patchmatch import PatchMatchConfig, TorchDraws, synthesize
+
+    t0 = time.perf_counter()
+    build_library()
+    t_build = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    m = 6
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    checker = ((np.add.outer(np.arange(h) // 8, np.arange(w) // 8) % 2) * 200 + 30)[:, :, None]
+    guides = 0.8 * np.tile(checker, (1, 1, 3)) + 0.2 * rng.uniform(0, 255, (h, w, 3))
+    style = rng.uniform(0, 255, (h, w, 3))
+    cfg = PatchMatchConfig(patch_size=5, pm_iters=3, sv_iters=3, uniformity=0.0, num_pyramid_levels=2)
+    t0 = time.perf_counter()
+    out, err, _ = synthesize(t(style), t(guides), t(guides), torch.full((3,), 2.0, device=dev), cfg, backend="native")
+    t_recon = time.perf_counter() - t0
+    recon = float((out.cpu().numpy()[m:-m, m:-m] - style[m:-m, m:-m]).__abs__().mean())
+    on_dev = out.device == dev and err.device == dev
+    guides = rng.uniform(0, 255, (h, w, 3))
+    style = rng.uniform(0, 255, (h, w, 3))
+    cfg = PatchMatchConfig(patch_size=5, pm_iters=4, sv_iters=3, uniformity=0.0, num_pyramid_levels=1)
+    args = (t(style), t(guides), t(guides), torch.full((3,), 2.0, device=dev), cfg)
+    t0 = time.perf_counter()
+    out_n, _, _ = synthesize(*args, backend="native")
+    t_easy = time.perf_counter() - t0
+    out_j, _, _ = synthesize(*args, draws=TorchDraws(seed, dev))
+    d = float((out_n - out_j)[m:-m, m:-m].abs().mean())
+    # a broken run for scale: the style through an NNF off by one pixel
+    off_by_one = float(np.abs(np.roll(style, 1, axis=1) - style)[m:-m, m:-m].mean())
+    print(f"native: {h}x{w}, g++ build {t_build:.2f} s; reconstruction (2 levels) {t_recon:.2f} s, mean |d| {recon:.3f} "
+          f"(max {NATIVE_RECON_MAX}); easy case (1 level) {t_easy:.2f} s, native vs jumpflood on the card mean |d| "
+          f"{d:.3f} (max {NATIVE_VS_JUMPFLOOD_MAX}); an NNF off by one pixel reads {off_by_one:.3f}; "
+          f"os.cpu_count() {os.cpu_count()}; outputs on {out.device} ({CARD})")
+    if not (recon < NATIVE_RECON_MAX and d < NATIVE_VS_JUMPFLOOD_MAX and on_dev and (err >= 0).all()):
+        fail(f"native: reconstruction {recon}, against jumpflood {d}, on the device {on_dev}")
+    if not max(NATIVE_RECON_MAX, NATIVE_VS_JUMPFLOOD_MAX) < off_by_one:
+        fail(f"native: an NNF off by one pixel reads {off_by_one}, inside the limits")
+
+
+def phase_flow_source(seed: int, dev, hw=PROP_HW):
+    """``default_flow_fn`` from a full-width GMFlow checkpoint written from a
+    seeded module: its flows equal the module's and the pipeline's loaded
+    GMFlow's on one pair; ``consistency_flow_fn`` picks GMFlow (F13)."""
+    import tempfile
+
+    from fresco_torch.models import convert as C
+    from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
+    from fresco_torch.models.gmflow.convert import convert_gmflow, gmflow_map
+    from fresco_torch.pipeline.runner import FrescoPipeline, _loaded_module, aux_dtype
+    from fresco_torch.propagate.video_blend import default_flow_fn
+
+    frames, _, _ = make_inputs(seed, 2, hw)
+    a, b = (torch.from_numpy(f).to(dev).float()[None] for f in frames)
+    with tempfile.TemporaryDirectory(prefix="fresco_gmflow_") as root:
+        path = f"{root}/gmflow_sintel-0c07dcb3.pth"
+        with torch.device("meta"):
+            src = GMFlow(GMFlowConfig())
+        src = _seeded_(src.to_empty(device=dev), torch.Generator(device=dev).manual_seed(seed + 15))
+        torch.save({"model": {k: v.cpu() for k, v in C.to_checkpoint(src.state_dict(), gmflow_map).items()}}, path)
+        t0 = time.perf_counter()
+        fn = default_flow_fn(path, dev)
+        _sync(dev)
+        t_load = time.perf_counter() - t0
+        cfg = music_config(gmflow_path=path, aux_dtype="float32")
+        pipe = FrescoPipeline.__new__(FrescoPipeline)
+        pipe.config, pipe.device = cfg, dev
+        gm = _loaded_module(GMFlow, path, convert_gmflow, dev, aux_dtype(cfg), {}, "gmflow")
+        pipe.bundle = type("Bundle", (), {"gmflow": gm, "flow_fn": None})()
+        picked = pipe.consistency_flow_fn()
+        with torch.no_grad():
+            ref = src(a, b)
+            got = fn(a, b)
+            via_pipe = picked(a, b)
+        ms = cuda_ms(lambda: fn(a, b), iters=5) if dev.type == "cuda" else float("nan")
+    same = torch.equal(got, ref) and torch.equal(via_pipe, ref)
+    print(f"flow source: default_flow_fn from a full-width GMFlow checkpoint, loaded in {t_load:.2f} s, one "
+          f"{hw[0]}x{hw[1]} pair {ms:.2f} ms; flows equal to the seeded module's and to consistency_flow_fn's "
+          f"(the loaded GMFlow, F13): {same} ({CARD})")
+    if not same:
+        fail("flow source: default_flow_fn or consistency_flow_fn differs from the checkpoint's GMFlow")
+
+
+def phase_clip(seed: int, dev, cfg=None, n: int = CLIP_FRAMES, res: int = CLIP_RES):
+    """CLIP vision at full width (ViT-L/14 with its projection): a seeded
+    module written as a CLIPModel .safetensors, loaded bit-equal through
+    ``make_clip_image_encoder``; its embeddings of a few frames against
+    the same module in float64 on the host; ``evaluate_translation`` on
+    ``n`` frames."""
+    import copy
+    import tempfile
+
+    from fresco_torch import metrics
+    from fresco_torch.models import convert as C
+    from fresco_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder, image_embeddings
+
+    cfg = cfg or CLIPVisionConfig()
+    with torch.device("meta"):
+        src = CLIPVisionEncoder(cfg, projection=True)
+    src = _seeded_(src.to_empty(device=dev), torch.Generator(device=dev).manual_seed(seed + 16))
+    with tempfile.TemporaryDirectory(prefix="fresco_clip_") as root:
+        path = f"{root}/clip_model.safetensors"
+        C.write_safetensors(path, C.to_checkpoint(src.state_dict(), lambda b: C.clip_vision_map(b, cfg)))
+        t0 = time.perf_counter()
+        enc = metrics.make_clip_image_encoder(path, dev)
+        _sync(dev)
+        t_load = time.perf_counter() - t0
+    loaded = enc.model.state_dict()
+    bits = sorted(loaded) == sorted(src.state_dict()) and all(
+        _bits_equal(loaded[k], v) for k, v in src.state_dict().items())
+    del src
+    frames, flows, _ = make_inputs(seed, n, res)
+    frames = np.stack(frames)
+    flows_d = torch.from_numpy(flows).to(dev)  # make_inputs' pairs (i, i+1 mod n), as warp_error takes them
+    x = torch.from_numpy(frames).to(dev)
+    ms = cuda_ms(lambda: enc(x), iters=5) if dev.type == "cuda" else float("nan")
+    k = CLIP_CHECK_FRAMES
+    ref = copy.deepcopy(enc.model).to("cpu", torch.float64)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = image_embeddings(ref, x[:k].cpu().double() / 127.5 - 1.0, project=True)
+    t_ref = time.perf_counter() - t0
+    clip_err = float((enc(x[:k]).cpu().double() - want).abs().max())
+    del ref
+    report = metrics.evaluate_translation(frames, lambda p, q: flows_d, dev, clip_encoder=enc)
+    print(f"clip vision: width {cfg.hidden_size}, {cfg.num_layers} layers, {cfg.image_size} px, patch "
+          f"{cfg.patch_size}, projection {cfg.projection_dim}; loaded in {t_load:.2f} s, bit-equal {bits}; encode "
+          f"{n} frames at {res} px {ms:.2f} ms; {k} frames against float64 on the host ({t_ref:.2f} s): max |d| "
+          f"{clip_err:.3e} (max {CLIP_MAX_ABS}); report {report} ({CARD})")
+    if not (bits and clip_err <= CLIP_MAX_ABS and report["frame_similarity_is_clip"] is True
+            and np.isfinite(report["frame_similarity"]) and np.isfinite(report["warp_error"])):
+        fail(f"clip vision: bit-equal {bits}, against float64 {clip_err}, report {report}")
+
+
+def phase_entry_points(seed: int, dev) -> dict:
+    """Phase 13: the propagation entry points and the CLI's metric."""
+    walls = phase_waves(seed, dev)
+    phase_ebsynth(seed, dev)
+    phase_native(seed, dev)
+    phase_flow_source(seed, dev)
+    phase_clip(seed, dev)
+    return walls
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1632,8 +1929,10 @@ def main() -> None:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
-          else f"nvidia-smi unavailable (rc {smi.returncode})")
+    global CARD
+    CARD = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
+            else f"nvidia-smi unavailable (rc {smi.returncode})")
+    print(CARD)
 
     t0 = time.perf_counter()
     kernels.load()
@@ -1653,6 +1952,7 @@ def main() -> None:
     phase_aux(args.seed, dev)
     phase_e2e(args.seed, dev, gram_rows=gram_rows, pe_shape_ms=pe_shape_ms)
     phase_weights(args.seed, dev, gram_rows)
+    phase_entry_points(args.seed, dev)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

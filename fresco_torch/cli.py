@@ -9,9 +9,14 @@ Keyframe translation writes save_path/video/ and save_path/keys/; with
 save_path/blend.mp4 (at the input's frame rate, else 30), and the
 run writes phases.json (keyframe and propagation phase seconds) and
 metrics.json (warp error and frame similarity of the blended clip and of
-the input).  Propagation and the metrics take Farneback flows through
-OpenCV where ``cv2`` can be imported, else the bundle's GMFlow.  Decoding
-the .mp4 and writing blend.mp4 need ``cv2``.  The device defaults to the card.
+the input).  Propagation and the metrics take the flows of the bundle's
+GMFlow when its checkpoint exists at ``gmflow_path``, else Farneback's
+through OpenCV, as the JAX CLI does; with neither, the bundle's GMFlow
+with random weights (``FrescoPipeline.consistency_flow_fn``).  Intervals
+propagate in waves over every visible card when ``max_process`` > 1.  The
+frame similarity is CLIP's where a CLIP vision checkpoint sits beside
+``gmflow_path``.  Decoding the .mp4 and writing blend.mp4 need ``cv2``.
+The device defaults to the card.
 """
 from __future__ import annotations
 
@@ -48,7 +53,8 @@ def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_s
     blend_dir = blend_video(config.save_path, key_ind=keys, key_dir="keys",
                             output=os.path.join(config.save_path, "blend.mp4"),
                             fps=get_fps(config.file_path) or 30, n_proc=config.max_process,
-                            flow_fn=pipe.consistency_flow_fn(), poisson=True, reuse_synthesis=reuse_synthesis,
+                            flow_fn=pipe.consistency_flow_fn(), poisson=True,
+                            n_devices="auto" if config.max_process > 1 else 1, reuse_synthesis=reuse_synthesis,
                             device=pipe.device, timers_out=prop_phases)
     phases = {"keyframes": {k: round(v, 3) for k, v in pipe.phases.times.items()},
               "propagation": {k: round(v, 3) for k, v in prop_phases.items()}}

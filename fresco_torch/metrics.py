@@ -1,11 +1,13 @@
 """Temporal-consistency metrics of a translated clip.
 
 Counterpart of ``fresco_tpu/metrics.py``: the flow-warp error under a
-flow function, and the frame-to-frame similarity.  The similarity here is
-the pixel-cosine proxy (CLIP vision is ROADMAP Slice 7), so
-``frame_similarity_is_clip`` is always False.
+flow function, and the frame-to-frame similarity: CLIP image embeddings
+where a CLIP vision checkpoint is given (``make_clip_image_encoder``),
+else the pixel-cosine proxy (``frame_similarity_is_clip`` says which).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -34,22 +36,56 @@ def warp_error(frames: torch.Tensor, flow_fn) -> float:
 
 
 @torch.no_grad()
-def clip_frame_similarity(frames: torch.Tensor) -> float:
-    """Mean cosine similarity of consecutive frames' embeddings: the 8x8
-    average-pooled pixels, mean-centred per frame."""
-    x = avg_pool2d(frames.to(torch.float32), 8)
-    emb = x.reshape(x.shape[0], -1)
-    emb = emb - emb.mean(dim=1, keepdim=True)
+def clip_frame_similarity(frames: torch.Tensor, image_encoder=None) -> float:
+    """Mean cosine similarity of consecutive frames' embeddings:
+    ``image_encoder(frames)`` where given, else the 8x8 average-pooled
+    pixels, mean-centred per frame."""
+    if image_encoder is not None:
+        emb = image_encoder(frames)
+    else:
+        x = avg_pool2d(frames.to(torch.float32), 8)
+        emb = x.reshape(x.shape[0], -1)
+        emb = emb - emb.mean(dim=1, keepdim=True)
     emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
     return float(torch.mean(torch.sum(emb[:-1] * emb[1:], dim=-1)))
 
 
-def evaluate_translation(out_frames: np.ndarray, flow_fn, device: torch.device | str | None = None) -> dict:
+def make_clip_image_encoder(ckpt_path: str | None, device: torch.device | str | None = None):
+    """An encoder for ``clip_frame_similarity`` from a transformers
+    CLIPVisionModel / CLIPModel checkpoint, on ``device`` (default the
+    card), or None where the file is absent.  encoder(frames_255) ->
+    L2-normalized [F, D], projected where the file has
+    ``visual_projection``."""
+    if not ckpt_path or not os.path.exists(ckpt_path):
+        return None
+    from fresco_torch.models.clip_vision import CLIPVisionEncoder, image_embeddings, infer_vision_config
+    from fresco_torch.models.convert import convert_clip_vision, load_into, load_torch_state_dict
+
+    sd = load_torch_state_dict(ckpt_path)
+    cfg = infer_vision_config(sd)
+    project = "visual_projection.weight" in sd
+    with torch.device("meta"):
+        model = CLIPVisionEncoder(cfg, projection=project)
+    model = model.to_empty(device=resolve_device(device))
+    load_into(model, convert_clip_vision(sd, cfg))
+    model = model.float().eval().requires_grad_(False)
+
+    def encode(frames_255: torch.Tensor) -> torch.Tensor:
+        return image_embeddings(model, frames_255.float() / 127.5 - 1.0, project=project)
+
+    encode.model = model
+    return encode
+
+
+def evaluate_translation(out_frames: np.ndarray, flow_fn, device: torch.device | str | None = None,
+                         clip_encoder=None) -> dict:
     """The report for a translated clip, uint8 [F, H, W, 3], on ``device``
-    (default the card; raises where there is none)."""
+    (default the card; raises where there is none).  ``clip_encoder``: from
+    ``make_clip_image_encoder``, for the real CLIP frame similarity; the
+    pixel-cosine proxy without it."""
     x = torch.as_tensor(np.asarray(out_frames), device=resolve_device(device)).to(torch.float32)
     return {
         "warp_error": warp_error(x, flow_fn),
-        "frame_similarity": clip_frame_similarity(x),
-        "frame_similarity_is_clip": False,
+        "frame_similarity": clip_frame_similarity(x, clip_encoder),
+        "frame_similarity_is_clip": clip_encoder is not None,
     }

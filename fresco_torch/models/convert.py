@@ -413,6 +413,28 @@ def clip_text_map(b: KeyMap, cfg) -> None:
     b.norm("final_layer_norm", f"{p}final_layer_norm", wrapped=False)
 
 
+def clip_vision_map(b: KeyMap, cfg) -> None:
+    """transformers CLIPVisionModel, or the vision half of a CLIPModel with
+    its ``visual_projection`` (``convert_clip_vision``, convert.py:286).
+    The projection is mapped where the port's module holds one."""
+    p = b.prefix("vision_model.")
+    b.raw_conv("patch_embedding", f"{p}embeddings.patch_embedding")
+    b.leaf("class_embedding", f"{p}embeddings.class_embedding")
+    b.embed("position_embedding", f"{p}embeddings.position_embedding")
+    b.norm("pre_layrnorm", f"{p}pre_layrnorm", wrapped=False)
+    for i in range(cfg.num_layers):
+        s, d = f"{p}encoder.layers.{i}", f"layers_{i}"
+        for ln in ("layer_norm1", "layer_norm2"):
+            b.norm(f"{d}/{ln}", f"{s}.{ln}", wrapped=False)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            b.dense(f"{d}/self_attn/{proj}", f"{s}.self_attn.{proj}")
+        b.dense(f"{d}/mlp_fc1", f"{s}.mlp.fc1")
+        b.dense(f"{d}/mlp_fc2", f"{s}.mlp.fc2")
+    b.norm("post_layernorm", f"{p}post_layernorm", wrapped=False)
+    if b.has("visual_projection"):
+        b.dense("visual_projection", "visual_projection")
+
+
 def sd_key_map(name: str, cfg) -> Callable[[KeyMap], None]:
     """The key map of the UNet / ControlNet / VAE / text encoder at ``cfg``."""
     fn = {"unet": unet_map, "controlnet": controlnet_map, "vae": vae_map, "text": clip_text_map}[name]
@@ -447,3 +469,13 @@ def convert_clip_text(sd, cfg=None, strict: bool = False) -> dict[str, torch.Ten
 
     cfg = cfg or CLIPTextConfig()
     return convert(sd, sd_key_map("text", cfg), _meta_keys(CLIPTextEncoder, cfg), strict)
+
+
+def convert_clip_vision(sd, cfg=None, strict: bool = False) -> dict[str, torch.Tensor]:
+    """A CLIPVisionModel / CLIPModel checkpoint -> the state dict of
+    ``CLIPVisionEncoder(cfg, projection=<the file has visual_projection>)``."""
+    from fresco_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+
+    cfg = cfg or CLIPVisionConfig()
+    own = _meta_keys(CLIPVisionEncoder, cfg, "visual_projection.weight" in sd)
+    return convert(sd, lambda b: clip_vision_map(b, cfg), own, strict)

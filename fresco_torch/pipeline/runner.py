@@ -630,18 +630,30 @@ class FrescoPipeline:
         return keys
 
     def consistency_flow_fn(self):
-        """The flow source of the metrics and the CLI's propagation: OpenCV's
-        Farneback where ``cv2`` can be imported (random GMFlow weights give
-        meaningless flows), else the bundle's GMFlow."""
+        """The flow source of the metrics and the CLI's propagation, in the
+        JAX package's order (fresco_tpu/cli.py:50-60,
+        fresco_tpu/pipeline/runner.py:621-634): the bundle's GMFlow when a
+        checkpoint exists at ``config.gmflow_path``, else OpenCV's
+        Farneback.  With neither (the card's machine has no OpenCV), the
+        bundle's GMFlow all the same, whose random weights give flows that
+        mean little; a line says so."""
+        gpath = str(self.config.gmflow_path or "")
+        if gpath and os.path.exists(gpath):
+            return self.gmflow_flow_fn()
         if _have_cv2():
             from fresco_torch.utils.classic_flow import pairwise_flow_fn
 
             return pairwise_flow_fn()
+        print(f"[fresco_torch] no GMFlow checkpoint at {gpath!r} and no OpenCV for Farneback: "
+              "flows from the bundle's GMFlow, whose weights are random")
         return self.gmflow_flow_fn()
 
     def evaluate_consistency(self, frame_dir: str, max_frames: int = 32) -> dict:
         """Warp error and frame similarity of a frame directory (a centred
-        window of ``max_frames`` consecutive frames)."""
+        window of ``max_frames`` consecutive frames).  The similarity is
+        CLIP's where ``clip_vision.safetensors``, ``clip_vision.bin`` or
+        ``clip_model.safetensors`` sits beside ``gmflow_path``, as in the
+        JAX package."""
         from fresco_torch import metrics
         from fresco_torch.propagate.video_blend import _codec
 
@@ -653,4 +665,10 @@ class FrescoPipeline:
             return {}
         Image = _codec()
         frames = np.stack([np.asarray(Image.open(os.path.join(frame_dir, f)).convert("RGB")) for f in files])
-        return metrics.evaluate_translation(frames, self.consistency_flow_fn(), self.device)
+        ckpt_dir = os.path.dirname(str(self.config.gmflow_path)) or "."
+        clip_enc = None
+        for name in ("clip_vision.safetensors", "clip_vision.bin", "clip_model.safetensors"):
+            clip_enc = metrics.make_clip_image_encoder(os.path.join(ckpt_dir, name), self.device)
+            if clip_enc:
+                break
+        return metrics.evaluate_translation(frames, self.consistency_flow_fn(), self.device, clip_encoder=clip_enc)

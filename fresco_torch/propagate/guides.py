@@ -8,7 +8,9 @@ written here with OpenCV's arithmetic: ``filter2D``'s saturating uint8
 result and ``BORDER_REFLECT_101``, ``remap``'s ``INTER_NEAREST`` rounding
 (half to even) with a constant 0 border, and ``resize``'s ``INTER_AREA``
 (fractional coverage at odd sizes) and ``INTER_LINEAR`` (half-pixel
-centres) coefficients.
+centres) coefficients.  The one exception is ``inpaint_method="telea"``,
+which calls OpenCV's TELEA on the host where ``cv2`` imports (push-pull
+stays the default).
 
 Images are uint8 [H, W, 3] tensors; flows float32 [H, W, 2] as (dx, dy);
 occlusion masks [H, W], nonzero = occluded.
@@ -143,14 +145,31 @@ def _resize_linear(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     return rows[y0] * ay0[:, None, None] + rows[y1] * ay1[:, None, None]
 
 
+def _telea(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``cv2.inpaint(img, mask*255, 30, INPAINT_TELEA)`` on the host, as the
+    JAX package and the reference do (guide.py:40,99-101); the result comes
+    back on the input's device."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("inpaint_method='telea' needs OpenCV (cv2), which is not importable here; "
+                          "use the default 'pushpull'") from e
+    out = cv2.inpaint(np.ascontiguousarray(img.cpu().numpy()), mask.cpu().numpy().astype(np.uint8) * 255,
+                      30, cv2.INPAINT_TELEA)
+    return torch.from_numpy(out).to(img.device)
+
+
 def inpaint_occluded(img: torch.Tensor, occ_mask: torch.Tensor, method: str = "pushpull") -> torch.Tensor:
-    """Fill the occluded pixels of a uint8 guide image by push-pull: area-
-    downsample the valid pixels and their count to 1 pixel, then
-    bilinear-upsample the fill into the holes (guides.py:74-91).  The
-    reference's TELEA inpainting is not ported."""
-    if method != "pushpull":
-        raise NotImplementedError(f"inpaint method {method!r} is not ported (ROADMAP Slice 6: telea)")
+    """Fill the occluded pixels of a uint8 guide image (guides.py:56-91).
+    ``pushpull`` (the default): area-downsample the valid pixels and their
+    count to 1 pixel, then bilinear-upsample the fill into the holes, on
+    the device.  ``telea``: the reference's exact TELEA inpainting, radius
+    30, through OpenCV on the host (``_telea``)."""
+    if method not in ("pushpull", "telea"):
+        raise ValueError(f"inpaint method {method!r}: expected 'pushpull' or 'telea'")
     mask = occ_mask > 0
+    if method == "telea":
+        return _telea(img, mask)
     valid = (~mask).float()
     acc = img.float() * valid[..., None]
     cnt = valid[..., None]

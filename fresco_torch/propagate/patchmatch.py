@@ -20,6 +20,8 @@ What differs from the JAX package, with the math held fixed:
   two methods): the coarsest level's initial NNF and, per PatchMatch
   iteration, the random deltas drawn on the full grid, so that the
   compacted and the full path see the same draws.
+- ``backend="native"`` runs the JAX package's C++ serpentine backend from
+  the port's own copy (``propagate/native``), built with g++ at first use.
 """
 from __future__ import annotations
 
@@ -64,6 +66,12 @@ class PatchMatchConfig:
     # and the random draws are on the full grid); () sweeps every tile.
     # The tier values themselves are not read.
     compact_tiers: tuple = (2, 4, 16)
+
+
+# The command lines' backend spellings (the JAX package's ``tpu`` / ``cuda``
+# and ``cpu`` / ``native``) -> ``synthesize``'s backend names.
+BACKEND_NAMES = {"jumpflood": "jumpflood", "tpu": "jumpflood", "cuda": "jumpflood",
+                 "native": "native", "cpu": "native"}
 
 
 class TorchDraws:
@@ -260,14 +268,14 @@ def synthesize(
     source_guides/target_guides: [H,W,Cg] aligned channel stacks;
     guide_channel_weights: [Cg] per-channel weights (already divided by the
     guide's channel count).  ``draws``: the random source (default
-    ``TorchDraws(0)`` on style's device).  ``backend="native"`` (the C++
-    serpentine backend) is not ported.
+    ``TorchDraws(0)`` on style's device).  ``backend``: ``"jumpflood"``
+    (the device path) or ``"native"`` (the C++ serpentine backend on the
+    host, ``_synthesize_native``; it takes no draws).
 
     Returns (output [Ht,Wt,Cs], error [Ht,Wt], nnf [Ht,Wt,2]); with
     ``debug_counts`` a 4th element, the per-level active counts."""
     if backend == "native":
-        raise NotImplementedError(
-            "the native serpentine backend is not ported (ROADMAP Slice 6: propagate/native)")
+        return _synthesize_native(style, source_guides, target_guides, guide_channel_weights, cfg)
     if backend != "jumpflood":
         raise ValueError(f"synthesize: unknown backend {backend!r}")
     if cfg.table_dtype != "bfloat16":
@@ -316,3 +324,51 @@ def synthesize(
     if debug_counts:
         return out, err, nnf, all_counts
     return out, err, nnf
+
+
+def _synthesize_native(style, source_guides, target_guides, guide_weights, cfg):
+    """The coarse-to-fine loop over the C++ serpentine backend
+    (``fresco_tpu/propagate/patchmatch.py:663-711``): numpy's
+    ``default_rng(0)`` initial NNF, this module's ``resize_bilinear``
+    between levels, seed ``li`` at level ``li``, then the 3x3 extra pass.
+    Runs on the host; returns tensors on the style's device."""
+    import numpy as np
+
+    from fresco_torch.propagate.native import synthesize_level_native
+
+    def host(x):
+        return x.detach().to("cpu", torch.float32)
+
+    def np_resize(x, hw):
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+        return resize_bilinear(x[None], hw)[0].numpy()
+
+    dev = style.device
+    style, source_guides, target_guides = host(style), host(source_guides), host(target_guides)
+    gw = host(guide_weights).numpy()
+    sh, sw, cs = style.shape
+    th, tw = target_guides.shape[:2]
+    sizes = _pyramid_sizes(sh, sw, th, tw, cfg.patch_size, cfg.num_pyramid_levels)
+    sw_arr = np.full((cs,), cfg.style_weight / cs, np.float32)
+    rng = np.random.default_rng(0)
+    r = cfg.patch_size // 2
+    nnf = None
+    for li, ((lsh, lsw), (lth, ltw)) in enumerate(sizes):
+        s_style = np_resize(style, (lsh, lsw))
+        s_guides = np_resize(source_guides, (lsh, lsw))
+        t_guides = np_resize(target_guides, (lth, ltw))
+        if nnf is None:
+            nnf = np.stack([rng.integers(r, lsh - r, (lth, ltw)),
+                            rng.integers(r, lsw - r, (lth, ltw))], axis=-1).astype(np.int32)
+        else:
+            up = np_resize(nnf.astype(np.float32), (lth, ltw))
+            nnf = np.clip((up * 2.0).astype(np.int32), [r, r], [lsh - 1 - r, lsw - 1 - r]).astype(np.int32)
+        out, err, nnf = synthesize_level_native(
+            s_style, s_guides, t_guides, sw_arr, gw, np.ascontiguousarray(nnf),
+            patch=cfg.patch_size, pm_iters=cfg.pm_iters, sv_iters=cfg.sv_iters,
+            uniformity=cfg.uniformity, seed=li)
+    if cfg.extra_pass_3x3:  # ebsynth_cpu.cpp:983-989
+        out, err, nnf = synthesize_level_native(
+            s_style, s_guides, t_guides, sw_arr, gw, np.ascontiguousarray(nnf),
+            patch=3, pm_iters=cfg.pm_iters, sv_iters=cfg.sv_iters, uniformity=0.0, seed=len(sizes))
+    return tuple(torch.from_numpy(a).to(dev) for a in (out, err, nnf))

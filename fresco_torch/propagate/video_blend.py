@@ -10,18 +10,22 @@ histogram blend -> optional Poisson fusion).
 keys in, blended uint8 BGR frames out, on the card unless the caller
 passes a CPU device.  ``blend_video`` wraps it with PNG files read and
 written through Pillow, and with ``output`` encodes the blended frames as
-an mp4 (``frames_to_video``; the video helpers need OpenCV).  Not ported
-here: the multi-device interval wave (``parallel.py``).  ``flow_fn`` is required: the
-caller supplies the flows (the CLI passes Farneback through OpenCV, or
-the model bundle's GMFlow: ``FrescoPipeline.gmflow_flow_fn``).
+an mp4 (``frames_to_video``; the video helpers need OpenCV).
+
+The flow source, as in the JAX package: the caller's ``flow_fn``, else
+``default_flow_fn()``: GMFlow from its checkpoint where one exists, else
+Farneback through OpenCV.  With ``n_devices`` > 1 the intervals run in
+waves, one chain per device (``_synthesize_chain_wave``,
+``propagate/parallel.py``), with the same output as the serial path.
 
 Run: ``python -m fresco_torch.propagate.video_blend <dir> --key_ind 0 10``
-(Farneback flows, so it needs OpenCV).
+(the JAX command line's flags, plus ``--device``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -40,7 +44,7 @@ from fresco_torch.propagate.guides import (
     warp_nearest,
 )
 from fresco_torch.propagate.histogram import histogram_blend
-from fresco_torch.propagate.patchmatch import PatchMatchConfig, TorchDraws, synthesize
+from fresco_torch.propagate.patchmatch import BACKEND_NAMES, PatchMatchConfig, TorchDraws, synthesize
 from fresco_torch.propagate.poisson import poisson_fusion
 
 
@@ -62,6 +66,13 @@ class PhaseTimers:
             dt = time.perf_counter() - t0
             with self._lock:
                 self.t[phase] = self.t.get(phase, 0.0) + dt
+
+    def table(self, total: float) -> str:
+        """The phases, longest first, each with its share of ``total``."""
+        rows = sorted(self.t.items(), key=lambda kv: -kv[1])
+        body = "\n".join(f"  {k:<12s} {v:8.1f}s  ({100 * v / total:5.1f}% of wall)" for k, v in rows)
+        return (f"[fresco_torch] propagation phase wall (total {total:.1f}s; "
+                f"phases overlap across the prefetch thread):\n{body}")
 
 
 def error_mask(dist1: torch.Tensor, dist2: torch.Tensor, weight1: float, weight2: float) -> torch.Tensor:
@@ -129,48 +140,109 @@ def _guide_weights(device) -> torch.Tensor:
         dtype=torch.float32, device=device)
 
 
-def _synthesize_chain_pair(key_imgs, frames_pair, flows_pair, cfg, seed: int,
-                           inpaint_method: str = "pushpull", timers: PhaseTimers | None = None,
-                           draw_device=None):
-    """Advance the forward and backward chains of one interval in lockstep
-    (video_blend.py:181-278).  Each chain synthesizes positions
-    1..interval-1 only: the far keyframe is never blended.  Returns
-    ((fwd_outs, fwd_errs), (bwd_outs, bwd_errs)) as uint8 / float32
-    tensors, the backward lists in chain order."""
+def _synthesize_chain(key_img, frames, flows, cfg, seed: int, d: int, inpaint_method: str = "pushpull",
+                      timers: PhaseTimers | None = None, draw_device=None, backend: str = "jumpflood"):
+    """One chain of an interval (video_blend.py:181-278), on ``key_img``'s
+    device.  ``frames``: the interval's frames from the chain's keyframe
+    on; ``flows``: the backward flow and occlusion of each pair.  The chain
+    synthesizes positions 1..len(frames)-2 only: the far keyframe is never
+    blended.  ``seed`` is the interval's; position j draws from
+    ``TorchDraws(_stream_seed(seed, j, d))`` (``d``: 0 forward, 1
+    backward).  Returns (outs, errs), uint8 / float32, in chain order."""
     tick = timers if timers is not None else (lambda _phase: contextlib.nullcontext())
-    outs, errs = ([], []), ([], [])
-    prev = [key_imgs[0], key_imgs[1]]
-    h, w = frames_pair[0][0].shape[:2]
-    dev = key_imgs[0].device
+    dev = key_img.device
+    h, w = frames[0].shape[:2]
     with tick("guides"):
-        pos_guides, src_stacks = [], []
-        for d in range(2):
-            frames, flows = frames_pair[d], flows_pair[d]
-            pg = positional_chain(h, w, [f for f, _ in flows], [o for _, o in flows],
-                                  method=inpaint_method, device=dev)
-            pos_guides.append(pg)
-            src_stacks.append(torch.cat([frames[0], edge_guide(frames[0]), key_imgs[d], pg[0]], -1).float())
+        pos = positional_chain(h, w, [f for f, _ in flows], [o for _, o in flows], method=inpaint_method, device=dev)
+        src = torch.cat([frames[0], edge_guide(frames[0]), key_img, pos[0]], -1).float()
     weights = _guide_weights(dev)
-    styles = [k.float() for k in key_imgs]
-    for j in range(1, len(frames_pair[0]) - 1):
+    style = key_img.float()
+    outs, errs, prev = [], [], key_img
+    for j in range(1, len(frames) - 1):
         with tick("guides"):
-            tgts = []
-            for d in range(2):
-                frames, flows = frames_pair[d], flows_pair[d]
-                bwd_flow, bwd_occ = flows[j - 1]
-                temporal = temporal_guide(prev[d], bwd_flow, bwd_occ, method=inpaint_method)
-                tgts.append(torch.cat([frames[j], edge_guide(frames[j]), temporal, pos_guides[d][j]], -1).float())
+            bwd_flow, bwd_occ = flows[j - 1]
+            temporal = temporal_guide(prev, bwd_flow, bwd_occ, method=inpaint_method)
+            tgt = torch.cat([frames[j], edge_guide(frames[j]), temporal, pos[j]], -1).float()
         with tick("synth"):
-            for d in range(2):
-                out, err, _ = synthesize(styles[d], src_stacks[d], tgts[d], weights, cfg,
-                                         draws=TorchDraws(_stream_seed(seed, j, d), dev, draw_device))
-                out_u8 = out.clamp(0, 255).to(torch.uint8)  # truncation, as astype
-                outs[d].append(out_u8)
-                errs[d].append(err)
-                prev[d] = out_u8
+            out, err, _ = synthesize(style, src, tgt, weights, cfg,
+                                     draws=TorchDraws(_stream_seed(seed, j, d), dev, draw_device), backend=backend)
+            prev = out.clamp(0, 255).to(torch.uint8)  # truncation, as astype
+            outs.append(prev)
+            errs.append(err)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-    return (outs[0], errs[0]), (outs[1], errs[1])
+    return outs, errs
+
+
+def _synthesize_chain_pair(key_imgs, frames_pair, flows_pair, cfg, seed: int,
+                           inpaint_method: str = "pushpull", timers: PhaseTimers | None = None,
+                           draw_device=None, backend: str = "jumpflood"):
+    """The forward and the backward chain of one interval
+    (``_synthesize_chain`` with d = 0, 1).  Returns ((fwd_outs, fwd_errs),
+    (bwd_outs, bwd_errs)), the backward lists in chain order."""
+    return tuple(_synthesize_chain(key_imgs[d], frames_pair[d], flows_pair[d], cfg, seed, d, inpaint_method,
+                                   timers, draw_device, backend) for d in range(2))
+
+
+def _synthesize_chain_wave(wave, cfg, seed: int, devices, inpaint_method: str = "pushpull",
+                           timers: PhaseTimers | None = None, draw_device=None):
+    """Every chain of a wave of intervals, one chain per device
+    (``fresco_tpu/propagate/video_blend.py:281-397``).
+
+    ``wave``: [(seq_i, key_imgs, frames_pair, flows_pair)], each as
+    ``_synthesize_chain_pair`` takes them; ``seed`` is the run's seed.
+    Each interval gives two jobs (the forward and the backward chain); job
+    k runs ``_synthesize_chain`` on ``devices[k]`` (``parallel.run_jobs``;
+    the list may repeat a device), its inputs copied there, with the
+    interval's seed ``_stream_seed(seed, seq_i)``, so the wave equals
+    ``_synthesize_chain_pair`` bit for bit.  The chains are independent:
+    each runs to its own end, with no lockstep between them (the JAX
+    package's lockstep and re-feed serve its one program across the mesh).
+    Returns {seq_i: ((fwd_outs, fwd_errs), (bwd_outs, bwd_errs))} on each
+    job's device, the backward lists in chain order."""
+    from fresco_torch.propagate.parallel import job_devices, run_jobs
+
+    jobs = [(seq_i, d, key_imgs[d], frames_pair[d], flows_pair[d])
+            for seq_i, key_imgs, frames_pair, flows_pair in wave for d in range(2)
+            if len(frames_pair[d]) > 2]  # interval 1: nothing to synthesize
+    results = {seq_i: [([], []), ([], [])] for seq_i, *_ in wave}
+    devs = job_devices(len(jobs), devices)
+
+    def chain(job, dev):
+        seq_i, d, key, frames, flows = job
+        return _synthesize_chain(key.to(dev), [f.to(dev) for f in frames], [(f.to(dev), o.to(dev)) for f, o in flows],
+                                 cfg, _stream_seed(seed, seq_i), d, inpaint_method, timers, draw_device)
+
+    outs = run_jobs(devs, [functools.partial(chain, job, dev) for job, dev in zip(jobs, devs)])
+    for (seq_i, d, *_), out in zip(jobs, outs):
+        results[seq_i][d] = out
+    return {k: tuple(v) for k, v in results.items()}
+
+
+def default_flow_fn(gmflow_path: str | None = None, device: torch.device | str | None = None):
+    """The propagation stage's flow source when the caller gives none
+    (``fresco_tpu/propagate/video_blend.py:400-420``): GMFlow
+    (``GMFlowConfig()``, float32) loaded from the checkpoint at
+    ``gmflow_path`` (default ``FrescoConfig.gmflow_path``) onto ``device``
+    (default the card) where that file exists, else Farneback through
+    OpenCV.  Without either it raises ``ImportError``."""
+    from fresco_torch.core.config import FrescoConfig
+
+    path = gmflow_path or FrescoConfig.gmflow_path
+    if path and os.path.exists(path):
+        from fresco_torch.models.gmflow import GMFlow
+        from fresco_torch.models.gmflow.convert import convert_gmflow
+        from fresco_torch.pipeline.runner import _loaded_module
+
+        model = _loaded_module(GMFlow, path, convert_gmflow, resolve_device(device), torch.float32, {}, "gmflow")
+        return lambda a, b: model(a.float(), b.float())
+    from fresco_torch.utils.classic_flow import pairwise_flow_fn
+
+    try:
+        return pairwise_flow_fn()
+    except ImportError as e:
+        raise ImportError(f"no flow source: no GMFlow checkpoint at {path!r} (pass one with --gmflow / "
+                          "gmflow_path) and OpenCV (cv2), which Farneback flows need, is not importable") from e
 
 
 def blend_video_frames(
@@ -178,12 +250,14 @@ def blend_video_frames(
     keys,
     key_ind: list[int],
     *,
-    flow_fn,
+    flow_fn=None,
     poisson: bool = True,
     use_histogram: bool = True,
     patch_cfg: PatchMatchConfig = PatchMatchConfig(),
     seed: int = 0,
     inpaint_method: str = "pushpull",
+    synth_backend: str = "jumpflood",
+    n_devices: int | str = 1,
     tmp_dir: str | None = None,
     reuse_synthesis: bool = False,
     keep_tmp: bool = True,
@@ -197,18 +271,29 @@ def blend_video_frames(
     ``keys``: {index: stylized uint8 BGR} for each of ``key_ind``;
     ``flow_fn``: float32 [N,H,W,3] pairs (a, b) on the device ->
     [2N,H,W,2] flows (forward block, then backward), as the keyframe
-    stage's ``ModelBundle.flow_fn``.  ``tmp_dir``: flow and synthesis npz
-    caches (``reuse_synthesis`` loads an interval's saved synthesis, the
+    stage's ``ModelBundle.flow_fn``; None takes ``default_flow_fn``.
+    ``synth_backend``: ``"jumpflood"`` (the device path) or ``"native"``
+    (the C++ serpentine backend on the host).  ``n_devices``: 1 (serial),
+    an int or ``"auto"`` (every visible card; 1 on the CPU): with more
+    than one and jumpflood, intervals run in waves of ``n_devices // 2``,
+    shortest first, one chain per device (the first ``n_devices`` cards;
+    on the CPU, ``n_devices`` copies of it); the output equals the serial
+    path's.  ``tmp_dir``: flow and synthesis npz caches
+    (``reuse_synthesis`` loads an interval's saved synthesis, the
     reference's ``-ne``).  ``draw_device``: where the random search draws
     are made (``TorchDraws``; the CPU makes a run on the card repeatable on
-    the CPU).  Returns {index: blended uint8 [H,W,3] BGR};
-    the keyframes pass through unchanged.  ``timers_out`` receives the
-    per-phase wall seconds and ``wall_total``."""
-    if flow_fn is None:
-        raise ValueError(
-            "blend_video_frames: flow_fn is required, e.g. the model bundle's GMFlow "
-            "(FrescoPipeline.gmflow_flow_fn()) or Farneback (utils.classic_flow.pairwise_flow_fn())")
+    the CPU).  Returns {index: blended uint8 [H,W,3] BGR}; the keyframes
+    pass through unchanged.  ``timers_out`` receives the per-phase wall
+    seconds and ``wall_total``."""
+    from fresco_torch.propagate.parallel import resolve_n_devices, wave_devices
+
     dev = resolve_device(device)
+    if synth_backend not in ("jumpflood", "native"):
+        raise ValueError(f"synth_backend {synth_backend!r}: expected 'jumpflood' or 'native'")
+    n_devices = resolve_n_devices(n_devices, dev)
+    devices = wave_devices(n_devices, dev) if n_devices > 1 and synth_backend == "jumpflood" else None
+    if flow_fn is None:
+        flow_fn = default_flow_fn(device=dev)
     if tmp_dir is not None:
         os.makedirs(tmp_dir, exist_ok=True)
     up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
@@ -223,6 +308,10 @@ def blend_video_frames(
         beg, end = key_ind[seq_i], key_ind[seq_i + 1]
         return None if tmp_dir is None else os.path.join(tmp_dir, f"synth_{beg}_{end}.npz")
 
+    def cached(seq_i):
+        cache = synth_cache(seq_i)
+        return reuse_synthesis and cache is not None and os.path.exists(cache)
+
     def interval_inputs(seq_i):
         """(key_imgs, frames_pair, flows_pair) of interval seq_i; computes
         or loads the pair flows (flow thread)."""
@@ -231,29 +320,52 @@ def blend_video_frames(
         rev_frames = seq_frames[::-1]
         js = list(range(max(end - beg - 1, 0)))
         fwd_flows = fcache.get_batch(seq_frames, js, [f"f{beg}_{j}" for j in js])
-        cache = synth_cache(seq_i)
         bwd_flows = None
-        if not (reuse_synthesis and cache and os.path.exists(cache)):
+        if not cached(seq_i):
             bwd_flows = fcache.get_batch(rev_frames, js, [f"b{end}_{j}" for j in js])
         return (keys_t[beg], keys_t[end]), (seq_frames, rev_frames), (fwd_flows, bwd_flows)
+
+    def load_synth(seq_i, fwd_flows):
+        z = np.load(synth_cache(seq_i))
+        return (*(list(up(x) for x in z[k]) for k in ("fwd_out", "fwd_err", "bwd_out", "bwd_err")), fwd_flows)
+
+    def save_synth(seq_i, fo, fe, bo, be):
+        cache = synth_cache(seq_i)
+        if cache and keep_tmp and fo:
+            np.savez(cache, **{k: torch.stack(v).cpu().numpy()
+                               for k, v in (("fwd_out", fo), ("fwd_err", fe), ("bwd_out", bo), ("bwd_err", be))})
 
     def synth_interval(seq_i, inputs):
         """Both chains of one interval (synthesis thread).  Returns
         (fwd_out, fwd_err, bwd_out, bwd_err, fwd_flows)."""
         key_imgs, frames_pair, flows_pair = inputs
-        cache = synth_cache(seq_i)
-        if reuse_synthesis and cache and os.path.exists(cache):
-            z = np.load(cache)
-            return (*(list(up(x) for x in z[k]) for k in ("fwd_out", "fwd_err", "bwd_out", "bwd_err")),
-                    flows_pair[0])
+        if cached(seq_i):
+            return load_synth(seq_i, flows_pair[0])
         (fo, fe), (bo, be) = _synthesize_chain_pair(
             key_imgs, frames_pair, flows_pair, patch_cfg, _stream_seed(seed, seq_i),
-            inpaint_method=inpaint_method, timers=timers, draw_device=draw_device)
+            inpaint_method=inpaint_method, timers=timers, draw_device=draw_device, backend=synth_backend)
         bo, be = bo[::-1], be[::-1]
-        if cache and keep_tmp and fo:
-            np.savez(cache, **{k: torch.stack(v).cpu().numpy()
-                               for k, v in (("fwd_out", fo), ("fwd_err", fe), ("bwd_out", bo), ("bwd_err", be))})
+        save_synth(seq_i, fo, fe, bo, be)
         return fo, fe, bo, be, flows_pair[0]
+
+    def synth_wave(wave_idx, inputs_list):
+        """A wave of intervals over ``devices`` (synthesis thread).
+        Returns {seq_i: synth_interval's tuple}, on ``dev``."""
+        results, wave = {}, []
+        for seq_i, (key_imgs, frames_pair, flows_pair) in zip(wave_idx, inputs_list):
+            if cached(seq_i):
+                results[seq_i] = load_synth(seq_i, flows_pair[0])
+            else:
+                wave.append((seq_i, key_imgs, frames_pair, flows_pair))
+        if wave:
+            flows = {seq_i: flows_pair[0] for seq_i, _, _, flows_pair in wave}
+            out = _synthesize_chain_wave(wave, patch_cfg, seed, devices, inpaint_method=inpaint_method,
+                                         timers=timers, draw_device=draw_device)
+            for seq_i, ((fo, fe), (bo, be)) in out.items():
+                fo, fe, bo, be = ([x.to(dev) for x in v] for v in (fo, fe, bo[::-1], be[::-1]))
+                save_synth(seq_i, fo, fe, bo, be)
+                results[seq_i] = (fo, fe, bo, be, flows[seq_i])
+        return results
 
     def blend_interval(seq_i, fwd_out, fwd_err, bwd_out, bwd_err, fwd_flows):
         """Per-frame candidate selection + blending (video_blend.py:574-611).
@@ -283,23 +395,54 @@ def blend_video_frames(
                 res = poisson_fusion(hb, oa, ob, mask) if poisson else hb
                 result[beg + i + 1] = res.cpu().numpy()
 
-    # Three-stage pipeline (video_blend.py:625-694): the flow thread keeps
+    # Three-stage pipeline (video_blend.py:613-694): the flow thread keeps
     # FLOW_AHEAD intervals of flows ready, the synthesis thread runs
-    # interval k+1 while the main thread blends interval k.
+    # interval (or wave) k+1 while the main thread blends interval k.
     executor = ThreadPoolExecutor(max_workers=1)
     flow_ex = ThreadPoolExecutor(max_workers=1)
     flow_ahead = 2
     inputs_fut: dict = {}
 
-    def launch(seq_i):
-        for i in range(min(seq_i + 1 + flow_ahead, n_seq)):
+    def queue_inputs(order, pos):
+        """Queue interval_inputs on the flow thread for the synthesis-order
+        positions up to ``pos + flow_ahead``."""
+        for i in order[: pos + 1 + flow_ahead]:
             if i not in inputs_fut:
                 inputs_fut[i] = flow_ex.submit(interval_inputs, i)
-        return executor.submit(lambda: synth_interval(seq_i, inputs_fut.pop(seq_i).result()))
+
+    def take_inputs(seq_i):
+        """One interval's inputs, released once taken (synthesis thread)."""
+        inp = inputs_fut[seq_i].result()
+        inputs_fut[seq_i] = None
+        return inp
 
     t0 = time.perf_counter()
     try:
-        if n_seq > 0:
+        if devices is not None and n_seq > 0:
+            per_wave = max(n_devices // 2, 1)
+            # intervals of similar length share a wave: a finished chain
+            # waits for the wave's longest one
+            order = sorted(range(n_seq), key=lambda i: key_ind[i + 1] - key_ind[i])
+            waves = [order[i:i + per_wave] for i in range(0, n_seq, per_wave)]
+
+            def launch_wave(wi):
+                queue_inputs(order, min((wi + 1) * per_wave, n_seq) - 1)
+                return executor.submit(lambda: synth_wave(waves[wi], [take_inputs(i) for i in waves[wi]]))
+
+            nxt = launch_wave(0)
+            for wi, wave_idx in enumerate(waves):
+                res = nxt.result()
+                if wi + 1 < len(waves):
+                    nxt = launch_wave(wi + 1)
+                for seq_i in sorted(wave_idx):
+                    blend_interval(seq_i, *res[seq_i])
+        elif n_seq > 0:
+            order = list(range(n_seq))
+
+            def launch(seq_i):
+                queue_inputs(order, seq_i)
+                return executor.submit(lambda: synth_interval(seq_i, take_inputs(seq_i)))
+
             nxt = launch(0)
             for seq_i in range(n_seq):
                 res = nxt.result()
@@ -313,6 +456,9 @@ def blend_video_frames(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     total = time.perf_counter() - t0
+    print(f"[fresco_torch] propagation+blend: {total:.1f}s")
+    if timers.t:
+        print(timers.table(total))
     if timers_out is not None:
         timers_out.update(timers.t)
         timers_out["wall_total"] = total
@@ -341,22 +487,22 @@ def blend_video(base_dir: str, key_ind: list[int], key_dir: str = "keys", output
                 fps: float = 30, n_proc: int = 8, *, flow_fn=None,
                 poisson: bool = True, use_histogram: bool = True,
                 patch_cfg: PatchMatchConfig = PatchMatchConfig(), seed: int = 0,
-                reuse_synthesis: bool = False, keep_tmp: bool = True,
-                inpaint_method: str = "pushpull", device: torch.device | str | None = None,
-                timers_out: dict | None = None) -> str:
+                reuse_synthesis: bool = False, keep_tmp: bool = True, synth_backend: str = "jumpflood",
+                inpaint_method: str = "pushpull", n_devices: int | str = 1,
+                device: torch.device | str | None = None, timers_out: dict | None = None) -> str:
     """The reference's file layout around ``blend_video_frames``: reads
     base_dir/video/%04d.png and base_dir/<key_dir>/%04d.png, writes
     base_dir/blend/%04d.png (caches in base_dir/tmp) and, given
     ``output``, those frames as an mp4 at ``fps``.  ``n_proc`` is accepted
-    for the CLI's sake and not used (as in the JAX package).  Returns the
-    blend directory."""
+    for the CLI's sake and not used (as in the JAX package); the other
+    options are ``blend_video_frames``'s.  Returns the blend directory."""
     frames = {i: read_bgr(os.path.join(base_dir, "video", "%04d.png" % i))
               for i in range(key_ind[0], key_ind[-1] + 1)}
     keys = {i: read_bgr(os.path.join(base_dir, key_dir, "%04d.png" % i)) for i in key_ind}
     out = blend_video_frames(
         frames, keys, key_ind, flow_fn=flow_fn, poisson=poisson, use_histogram=use_histogram,
-        patch_cfg=patch_cfg, seed=seed, inpaint_method=inpaint_method,
-        tmp_dir=os.path.join(base_dir, "tmp"), reuse_synthesis=reuse_synthesis, keep_tmp=keep_tmp,
+        patch_cfg=patch_cfg, seed=seed, inpaint_method=inpaint_method, synth_backend=synth_backend,
+        n_devices=n_devices, tmp_dir=os.path.join(base_dir, "tmp"), reuse_synthesis=reuse_synthesis, keep_tmp=keep_tmp,
         device=device, timers_out=timers_out)
     blend_dir = os.path.join(base_dir, "blend")
     os.makedirs(blend_dir, exist_ok=True)
@@ -434,12 +580,26 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description="fresco_torch video blending")
     p.add_argument("name", type=str)
+    p.add_argument("--output", type=str, default=None)
+    p.add_argument("--backend", type=str, default="jumpflood", choices=sorted(BACKEND_NAMES),
+                   help="patch-synthesis backend: jumpflood (also tpu, cuda) on the device, "
+                        "native (also cpu) = the C++ serpentine backend on the host")
+    p.add_argument("--inpaint", type=str, default="pushpull", choices=["pushpull", "telea"],
+                   help="guide inpainting (telea = reference parity, needs OpenCV)")
+    p.add_argument("--fps", type=float, default=30)
     p.add_argument("--key_ind", type=int, nargs="+", required=True)
     p.add_argument("--key", type=str, default="keys")
+    p.add_argument("--n_proc", type=int, default=8)
+    p.add_argument("--n_devices", type=str, default="1",
+                   help="interval-parallel synthesis over this many cards ('auto' = every visible card)")
     p.add_argument("-ps", action="store_true", help="Poisson fusion")
     p.add_argument("-ne", action="store_true", help="reuse previous synthesis outputs (resume)")
-    p.add_argument("--trim", type=int, default=None, help="trim_seeded_levels tier")
-    p.add_argument("--stop-threshold", type=float, default=None, help="ebsynth -stopthreshold")
+    p.add_argument("-tmp", action="store_true", help="keep tmp caches")
+    p.add_argument("--trim", type=int, default=None,
+                   help="trim_seeded_levels tier (0 = full candidate sweep, 2 = throughput-first)")
+    p.add_argument("--stop-threshold", type=float, default=None, help="ebsynth -stopthreshold (0 disables freezing)")
+    p.add_argument("--gmflow", type=str, default=None,
+                   help="GMFlow checkpoint for flows (default: the FrescoConfig location; Farneback where absent)")
     p.add_argument("--device", type=str, default=None, help="default: the card")
     a = p.parse_args(argv)
     pm_kw = {}
@@ -447,10 +607,11 @@ def main(argv=None):
         pm_kw["trim_seeded_levels"] = a.trim
     if a.stop_threshold is not None:
         pm_kw["stop_threshold"] = a.stop_threshold
-    from fresco_torch.utils.classic_flow import pairwise_flow_fn
-
-    blend_video(a.name, a.key_ind, a.key, flow_fn=pairwise_flow_fn(), poisson=a.ps, reuse_synthesis=a.ne,
-                patch_cfg=PatchMatchConfig(**pm_kw), device=a.device)
+    blend_video(a.name, a.key_ind, a.key, a.output, a.fps, a.n_proc, poisson=a.ps, reuse_synthesis=a.ne,
+                keep_tmp=True, synth_backend=BACKEND_NAMES[a.backend], inpaint_method=a.inpaint,
+                patch_cfg=PatchMatchConfig(**pm_kw),
+                n_devices=a.n_devices if a.n_devices == "auto" else int(a.n_devices),
+                flow_fn=default_flow_fn(a.gmflow, a.device) if a.gmflow else None, device=a.device)
 
 
 if __name__ == "__main__":

@@ -75,8 +75,14 @@ def test_guides_match_opencv(h, w):
         np.testing.assert_array_equal(a.numpy(), b)
     np.testing.assert_array_equal(tguides.temporal_guide(_t(img), _t(flows[0]), _t(occs[0])).numpy(),
                                   jguides.temporal_guide(img, flows[0], occs[0]))
-    with pytest.raises(NotImplementedError, match="telea"):
-        tguides.inpaint_occluded(_t(img), _t(occ), method="telea")
+    np.testing.assert_array_equal(tguides.inpaint_occluded(_t(img), _t(occ), method="telea").numpy(),
+                                  jguides.inpaint_occluded(img, occ, method="telea"))
+    for a, b in zip(tguides.positional_chain(h, w, [_t(f) for f in flows], [_t(o) for o in occs], method="telea"),
+                    jguides.positional_chain(h, w, flows, occs, method="telea")):
+        np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(
+        tguides.temporal_guide(_t(img), _t(flows[0]), _t(occs[0]), method="telea").numpy(),
+        jguides.temporal_guide(img, flows[0], occs[0], method="telea"))
 
 
 def _assert_within_levels(a, b, max_diff, min_frac_le1=0.99):

@@ -267,7 +267,5 @@ def test_full_and_compacted_paths_agree_exactly():
 
 def test_unported_options_raise():
     args = [_t(a) for a in _synth_inputs()]
-    with pytest.raises(NotImplementedError, match="native"):
-        T.synthesize(*args, backend="native")
     with pytest.raises(NotImplementedError, match="uint8"):
         T.synthesize(*args, T.PatchMatchConfig(table_dtype="uint8"))
