@@ -1,7 +1,8 @@
 """GPU smoke test of fresco_torch: kernels against their plain versions,
 then one full-width keyframe batch and one full-width propagation interval
-through the pipeline, the loaded-weights batch and the propagation entry
-points.
+through the pipeline, the loaded-weights batch, the propagation entry
+points, and the control detectors with config_boxer's depth-controlled
+batch.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit:
@@ -114,6 +115,21 @@ Phases (each prints its own lines; any failure exits non-zero):
                and evaluate_translation on 32 frames at 512 px with
                frame_similarity_is_clip true.
                Every line carries the card's name and power limit.
+ 14. detectors: full-width MiDaS DPT-hybrid (timm layout), M-LSD (unfolded
+               Conv + BatchNorm) and OpenPose body (the released flat keys)
+               checkpoints written from seeded modules beside phase 12's
+               files and an sd-controlnet-depth link; config/config_boxer.yaml
+               loaded with its paths pointed there and build_models run:
+               each detector bit-equal to its source (M-LSD to a float64
+               fold computed here), 64 px card vs CPU, 8 frames at 512x512
+               timed, the outputs card vs CPU (the MiDaS depth image, the
+               M-LSD line map, body_decode on the body maps, and
+               openpose_detector's drawing where cv2 imports); then one
+               8-keyframe 512x512 batch with config_boxer's settings (depth
+               control, cond_scale 0.7, 20 steps, warmup 5, EGNet saliency,
+               GMFlow) on the loaded weights: flash and the sign-gram pair
+               must launch, the latents be finite, and the ControlNet's
+               condition equal the detector's depth maps.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
@@ -1914,13 +1930,289 @@ def phase_entry_points(seed: int, dev) -> dict:
     return walls
 
 
+# ---------------------------------------------------------------- control detectors (phase 14)
+# full-width detectors at 64 px, float32 (no TF32), card against CPU: the
+# largest |d| over the largest |output|.  Read 2.35e-5, 6.9e-7 and 8.5e-6
+# (H100 80GB HBM3, 700 W); each limit about 4x its reading
+DET_REL = {"midas": 1e-4, "mlsd": 3e-6, "openpose": 3e-5}
+# at 512x512, card against CPU: depth-image pixels 1 level apart (read
+# 7.4e-4; never more than 1 level), line-map and pose-drawing pixels apart
+# (read 0 of 262,144)
+DEPTH_SHARE = 3e-3
+MLSD_PIXEL_SHARE = 1e-3
+POSE_PIXEL_SHARE = 1e-3
+DET_FRAMES = 8
+
+
+def _fold64(sd: dict, conv: str, bn: str):
+    """Conv ``conv`` with BatchNorm ``bn`` folded in, in float64 on the host:
+    w * g / sqrt(var + 1e-5), (b - mean) * g / sqrt(var + 1e-5) + beta."""
+    g, beta, mu, var = (sd[f"{bn}.{n}"].double().cpu() for n in ("weight", "bias", "running_mean", "running_var"))
+    scale = g / torch.sqrt(var + 1e-5)
+    b = sd[f"{conv}.bias"].double().cpu() if f"{conv}.bias" in sd else torch.zeros_like(mu)
+    return ((sd[f"{conv}.weight"].double().cpu() * scale[:, None, None, None]).float(),
+            ((b - mu) * scale + beta).float())
+
+
+def write_detector_checkpoints(root: str, seed: int, dev) -> dict:
+    """Seeded full-width detector checkpoints under ``root`` in the
+    reference layouts: MiDaS (timm keys, refinenet4's unused
+    ``resConfUnit1`` included), M-LSD (unfolded Conv + BatchNorm), the
+    OpenPose body model (the released flat keys).  Returns {detector: the
+    state dict each loaded module must hold}: MiDaS and OpenPose their
+    sources, M-LSD the float64 fold of its file computed here."""
+    from fresco_torch.models import convert as C
+    from fresco_torch.models import midas, mlsd, openpose
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    with torch.device("meta"):
+        mods = {"midas": midas.DPTHybridDepth(), "openpose": openpose.BodyPose(), "mlsd": mlsd.MLSDLarge()}
+    src = {n: dict(_seeded_(m.to_empty(device=dev), gen).state_dict()) for n, m in mods.items()}
+    ck = {k: v.cpu() for k, v in C.to_checkpoint(src["midas"], midas.midas_map).items()}
+    for c in ("conv1", "conv2"):
+        ck[f"scratch.refinenet4.resConfUnit1.{c}.weight"] = torch.zeros(256, 256, 3, 3)
+        ck[f"scratch.refinenet4.resConfUnit1.{c}.bias"] = torch.zeros(256)
+    torch.save(ck, f"{root}/{midas.CHECKPOINT}")
+    torch.save({k.split(".", 1)[1]: v.cpu() for k, v in src["openpose"].items()}, f"{root}/{openpose.CHECKPOINT}")
+    # M-LSD: each folded conv of the port becomes a conv and a BatchNorm
+    mlsd_sd = {}
+    folded = src.pop("mlsd")
+    for dst, conv, bn in mlsd._conv_bn_pairs():
+        w = folded[f"{dst}.weight"]
+        mlsd_sd[f"{conv}.weight"] = w.cpu()
+        if dst.startswith("block"):  # the FPN blocks' convolutions have a bias, the backbone's do not
+            mlsd_sd[f"{conv}.bias"] = (torch.randn(w.shape[0], generator=gen, device=dev) * 0.05).cpu()
+        o = w.shape[0]
+        mlsd_sd[f"{bn}.weight"] = (0.5 + 0.5 * torch.rand(o, generator=gen, device=dev)).cpu()
+        mlsd_sd[f"{bn}.bias"] = (torch.randn(o, generator=gen, device=dev) * 0.1).cpu()
+        mlsd_sd[f"{bn}.running_mean"] = (torch.randn(o, generator=gen, device=dev) * 0.1).cpu()
+        mlsd_sd[f"{bn}.running_var"] = (0.5 + torch.rand(o, generator=gen, device=dev)).cpu()
+        mlsd_sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    for leaf in ("weight", "bias"):
+        mlsd_sd[f"block23.conv3.{leaf}"] = folded[f"block23.conv3.{leaf}"].cpu()
+    torch.save(mlsd_sd, f"{root}/{mlsd.CHECKPOINT}")
+    src["mlsd"] = {}
+    for dst, conv, bn in mlsd._conv_bn_pairs():
+        src["mlsd"][f"{dst}.weight"], src["mlsd"][f"{dst}.bias"] = _fold64(mlsd_sd, conv, bn)
+    src["mlsd"].update({f"block23.conv3.{leaf}": mlsd_sd[f"block23.conv3.{leaf}"] for leaf in ("weight", "bias")})
+    return src
+
+
+def _max_rel(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max() / b.float().abs().max())
+
+
+def _timed_frames(dev, fn, frames) -> tuple[float, float]:
+    """(ms for ``fn`` over every frame after a warm-up frame, peak GiB)."""
+    fn(frames[0])
+    _sync(dev)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    for f in frames:
+        fn(f)
+    _sync(dev)
+    return (time.perf_counter() - t0) * 1e3, _peak_gib(dev)
+
+
+def check_detectors(mods: dict, src: dict, seed: int, dev, res: int = 512) -> None:
+    """Loaded bit-equal to their sources; 64 px card against CPU; 8 frames
+    at ``res`` timed; the detectors' outputs card against CPU."""
+    import importlib.util
+
+    from fresco_torch.models import midas, mlsd, openpose
+    from fresco_torch.ops.image import _resize_area
+
+    for name, m in mods.items():
+        got = m.state_dict()
+        bad = [k for k in src[name] if not _bits_equal(got[k], src[name][k].to(got[k].device))]
+        if sorted(got) != sorted(src[name]) or bad:
+            fail(f"detectors: {name} loaded weights differ from the source: {bad[:4]}")
+    print("detectors: loaded bit-equal to their sources (float32): "
+          + "; ".join(f"{n} {len(src[n])} tensors, {sum(v.numel() for v in src[n].values()) / 1e6:.1f} M params"
+                      + (" (against a float64 fold of the file)" if n == "mlsd" else "") for n in mods))
+    cpu = {n: copy.deepcopy(m).cpu() for n, m in mods.items()}
+    g = torch.Generator().manual_seed(seed + 16)
+    x3 = torch.rand(1, 64, 64, 3, generator=g) * 2 - 1
+    x4 = torch.cat([x3, torch.ones(1, 64, 64, 1)], -1)
+    rel = {"midas": _max_rel(mods["midas"](x3.to(dev)), cpu["midas"](x3)),
+           "mlsd": _max_rel(mods["mlsd"](x4.to(dev)), cpu["mlsd"](x4)),
+           "openpose": max(_max_rel(a, b) for a, b in zip(mods["openpose"](x3.to(dev) / 2), cpu["openpose"](x3 / 2)))}
+    print("detectors 64 px, full width, float32 card vs CPU, max |d| / max |out|: "
+          + ", ".join(f"{n} {v:.2e} (limit {DET_REL[n]})" for n, v in rel.items()) + f" ({CARD})")
+    if any(rel[n] > DET_REL[n] for n in rel):
+        fail("detectors: card and CPU disagree at 64 px")
+
+    frames, _, _ = make_inputs(seed, DET_FRAMES, res)
+    # the body network's input at the 368 box's scale (0.5 * 368 / height): a
+    # square frame becomes 184x184 (resized here with INTER_AREA: the
+    # detector's INTER_CUBIC is OpenCV's)
+    side = 184
+    box = lambda f: torch.as_tensor(  # noqa: E731
+        _resize_area(f, side, side)[None, :, :, ::-1].copy(), device=dev).float() / 256.0 - 0.5
+    have_cv2 = importlib.util.find_spec("cv2") is not None
+    runs = {"MiDaS depth_detector": lambda f: midas.depth_detector(mods["midas"], f),
+            "M-LSD mlsd_detector": lambda f: mlsd.mlsd_detector(mods["mlsd"], f),
+            f"OpenPose BodyPose at the 368 box ({side}x{side})": lambda f: mods["openpose"](box(f))}
+    if have_cv2:
+        runs["OpenPose openpose_detector (with OpenCV's resizes and drawing)"] = \
+            lambda f: openpose.openpose_detector(mods["openpose"], f)
+    for name, fn in runs.items():
+        ms, peak = _timed_frames(dev, fn, frames)
+        print(f"detectors {res}x{res} {name}: {DET_FRAMES} frames {ms:.1f} ms ({ms / DET_FRAMES:.2f} ms a frame), "
+              f"peak device memory {peak:.2f} GiB ({CARD})")
+
+    f = frames[0]
+    dd, dc = midas.depth_detector(mods["midas"], f), midas.depth_detector(cpu["midas"], f)
+    diff = np.abs(dd.astype(int) - dc)
+    # the detector's thresholds (MLSDdetector: score 0.1, distance 0.1)
+    la, lc = (mlsd.pred_lines(f, m, (512, 512), 0.1, 0.1) for m in (mods["mlsd"], cpu["mlsd"]))
+    md, mc = mlsd.mlsd_detector(mods["mlsd"], f), mlsd.mlsd_detector(cpu["mlsd"], f)
+    maps = [tuple(t[0].float().cpu().numpy() for t in m(box(f).to(next(m.parameters()).device)))
+            for m in (mods["openpose"], cpu["openpose"])]
+    # decoded at the maps' own resolution (23x23 at 512 px): the peaks' places and the people
+    pose = [openpose.body_decode(heat, paf, heat.shape[0]) for paf, heat in maps]
+    same_peaks = np.array_equal(pose[0][0][:, [0, 1, 3]], pose[1][0][:, [0, 1, 3]])
+    same_people = np.array_equal(pose[0][1][:, :18], pose[1][1][:, :18])
+    print(f"detectors {res}x{res} card vs CPU: MiDaS depth image max |d| {diff.max()} level(s), share of pixels apart "
+          f"{(diff > 0).mean():.2e} (limit 1 level, {DEPTH_SHARE}), depth range {dd.min()}-{dd.max()}; M-LSD "
+          f"{len(la)} / {len(lc)} lines, line maps differ in {int((md != mc).sum())} of {md.size} pixels "
+          f"(limit share {MLSD_PIXEL_SHARE}), {int((md > 0).sum())} line pixels; OpenPose maps max |d| / max "
+          f"{max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(*maps)):.2e}, body_decode on the card's "
+          f"maps: {len(pose[0][0])} peaks, {len(pose[0][1])} people (CPU's maps: {len(pose[1][0])}, "
+          f"{len(pose[1][1])}), peak places equal {same_peaks}, people's parts equal {same_people} ({CARD})")
+    if diff.max() > 1 or (diff > 0).mean() > DEPTH_SHARE or (md != mc).mean() > MLSD_PIXEL_SHARE:
+        fail(f"detectors: card and CPU outputs disagree at {res}x{res}")
+    if not (same_peaks and same_people):
+        fail("detectors: body_decode finds other peaks or people in the card's maps than in the CPU's")
+    if not have_cv2:
+        print("detectors: OpenPose's drawing (openpose_detector, OpenCV's INTER_CUBIC and polygons) skipped: no cv2 on "
+              "this machine; tests/test_torch_openpose.py holds it bit for bit against the JAX package on the CPU")
+        return
+    od, oc = openpose.openpose_detector(mods["openpose"], f), openpose.openpose_detector(cpu["openpose"], f)
+    apart = float(np.any(od != oc, axis=-1).mean())
+    print(f"detectors {res}x{res}: openpose_detector card vs CPU: share of pixels apart {apart:.2e} (limit "
+          f"{POSE_PIXEL_SHARE}), {int(np.any(od > 0, axis=-1).sum())} pixels drawn ({CARD})")
+    if apart > POSE_PIXEL_SHARE:
+        fail("detectors: openpose_detector's drawings differ between the card and the CPU")
+
+
+def phase_detectors(seed: int, dev, gram_rows=None, res: int = 512):
+    """Phase 14: the three control detectors from full-width checkpoints,
+    then config_boxer's depth-controlled keyframe batch from loaded weights."""
+    import os
+    import tempfile
+
+    from fresco_torch.attention.flash import flash_attention
+    from fresco_torch.core.config import load_config
+    from fresco_torch.models import midas, mlsd, openpose
+    from fresco_torch.ops.gemm import bmm
+    from fresco_torch.ops.gram_kernel import sign_gram_apply
+    from fresco_torch.pipeline import runner
+    from fresco_torch.utils.guards import check_finite
+
+    n = 8
+    with tempfile.TemporaryDirectory(prefix="fresco_boxer_") as root:
+        t0 = time.perf_counter()
+        write_checkpoints(root, seed, dev)  # phase 12's files: SD1.5, GMFlow, HED, EGNet
+        os.symlink(f"{root}/sd-controlnet-hed", f"{root}/sd-controlnet-depth")  # the same architecture
+        det_src = write_detector_checkpoints(root, seed, dev)
+        _sync(dev)
+        print(f"detectors: wrote checkpoints in {time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{f} {os.path.getsize(f'{root}/{f}') / 2**20:.0f} MiB"
+                          for f in (midas.CHECKPOINT, mlsd.CHECKPOINT, openpose.CHECKPOINT)))
+        cfg = load_config("config/config_boxer.yaml")
+        cfg = cfg.replace(sd_path=f"{root}/stable-diffusion-v1-5", gmflow_path=f"{root}/gmflow_sintel-0c07dcb3.pth",
+                          sod_path=f"{root}/epoch_resnet.pth")
+        if (cfg.controlnet_type, cfg.cond_scale, cfg.num_inference_steps, cfg.num_warmup_steps, cfg.end_opt_step,
+                cfg.use_freeu, cfg.use_saliency, cfg.batch_size) != ("depth", 0.7, 20, 5, 15, False, True, 8):
+            fail(f"boxer: config/config_boxer.yaml's settings changed: {cfg}")
+        t0 = time.perf_counter()
+        bundle = runner.build_models(cfg, seed=seed, device=dev)
+        _sync(dev)
+        t_build = time.perf_counter() - t0
+        times = {}
+        mods = {"midas": bundle.detector.args[0],
+                "mlsd": runner._build_detector(cfg.replace(controlnet_type="mlsd"), False, dev, None, False,
+                                               times).args[0]}
+        pose_cfg = cfg.replace(controlnet_type="openpose")
+        if runner._have_cv2():
+            mods["openpose"] = runner._build_detector(pose_cfg, False, dev, None, False, times).args[0]
+        else:  # the detector needs OpenCV: load its network as _build_detector would
+            try:
+                runner._build_detector(pose_cfg, False, dev, None, False)
+                fail("detectors: _build_detector built OpenPose without cv2")
+            except ImportError as e:
+                print(f"detectors: _build_detector('openpose') raises without OpenCV, as it should: {e}")
+            mods["openpose"] = runner._loaded_module(openpose.BodyPose, f"{root}/{openpose.CHECKPOINT}",
+                                                     openpose.convert_openpose, dev, torch.float32, times,
+                                                     "openpose")
+    ls = {**bundle.load_seconds, **times}
+    print(f"boxer: build_models from checkpoints {t_build:.2f} s; detector {bundle.detector.func.__name__}; load "
+          "seconds (read, convert, to the card): "
+          + "; ".join(f"{k} {v['read'] + v['convert'] + v['to_device']:.3f}" for k, v in ls.items()))
+    if bundle.detector.func is not midas.depth_detector or "midas" not in ls or bundle.saliency_fn is None:
+        fail("boxer: build_models did not load the MiDaS detector and EGNet")
+    check_detectors(mods, det_src, seed, dev, res)
+    del det_src, mods
+
+    frames, _, _ = make_inputs(seed, n, res)
+    pipe = runner.FrescoPipeline(cfg, bundle)
+    pipe.sync_phases = True
+    prompts, negs = prompts_for(cfg, n)
+    seen = []
+    hook = bundle.controlnet.controlnet_cond_embedding.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].detach().clone()))
+    _sync(dev)
+    _reset_peak(dev)
+    flash_attention.launches = 0
+    sign_gram_apply.launches = 0
+    sign_gram_apply.launches_by_shape.clear()
+    bmm.launches = 0
+    t0 = time.perf_counter()
+    latents, _ = pipe._translate_batch(frames, prompts, negs, None, False)
+    images = pipe.decode(latents)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    hook.remove()
+    launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches,
+                "bmm": bmm.launches}
+    ph = pipe.phases.times
+    print(f"boxer batch: {n} keyframes {res}x{res}, config_boxer (depth, cond_scale {cfg.cond_scale}, "
+          f"{cfg.num_inference_steps} steps, warmup {cfg.num_warmup_steps}, end_opt_step {cfg.end_opt_step}, no FreeU, "
+          f"EGNet saliency, GMFlow flows) on loaded weights: wall {wall:.2f} s, control_detector "
+          f"{ph.get('control_detector', 0.0):.3f} s, denoise loop {ph.get('denoise_loop', 0.0):.3f} s, peak device "
+          f"memory {_peak_gib(dev):.2f} GiB, launches {launches}; phases (s, synchronized): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ph.items(), key=lambda kv: -kv[1])) + f" ({CARD})")
+    sign_gram_by_shape("boxer batch", gram_rows)
+    check_finite("boxer_latents", latents)
+    if images.shape != (n, res, res, 3) or images.dtype != np.uint8:
+        fail(f"boxer batch output {images.shape} {images.dtype}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"boxer batch did not launch every kernel: {launches}")
+    # watch-point 8: the ControlNet embedded the detector's depth maps
+    depth = np.stack([midas.depth_detector(bundle.detector.args[0], f) for f in frames])
+    want = (torch.as_tensor(depth, device=dev)[..., None].float() / 255.0).expand(n, res, res, 3)
+    want = torch.cat([want] * 2).to(bundle.controlnet.dtype)
+    if len(seen) != 1 or seen[0].shape != want.shape or not torch.equal(seen[0], want):
+        fail(f"boxer: the ControlNet's condition is not the detector's depth maps ({len(seen)} embeddings)")
+    print(f"boxer: the ControlNet embedded the detector's depth maps, equal to a second detector run "
+          f"({n} frames, std of the maps {float(depth.std()):.1f} levels, frames apart "
+          f"{int(np.any(depth != depth[:1], axis=(1, 2)).sum())} of {n - 1})")
+    del bundle, pipe, latents
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
-    from fresco_torch import kernels  # fails outside a checkout
+    try:
+        from fresco_torch import kernels
+    except ImportError as e:  # the script alone, outside a checkout: fail by design, and say so
+        fail(f"fresco_torch does not import here ({e}): run chip_smoke.py from the root of a checkout")
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1953,6 +2245,7 @@ def main() -> None:
     phase_e2e(args.seed, dev, gram_rows=gram_rows, pe_shape_ms=pe_shape_ms)
     phase_weights(args.seed, dev, gram_rows)
     phase_entry_points(args.seed, dev)
+    phase_detectors(args.seed, dev, gram_rows)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

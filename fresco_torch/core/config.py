@@ -99,7 +99,8 @@ class FrescoConfig:
     # fixes the cap at xK of hw (may truncate, warned once); 0 = dense
     cf_key_cap: float | str = "auto"
 
-    # --- runtime (mesh fields are read by the JAX package only) ---
+    # --- runtime (the port runs on one device: FrescoPipeline raises where
+    # prod(mesh_shape) > 1; the axis names are read by the JAX package only) ---
     dtype: str = "bfloat16"              # compute dtype for SD/ControlNet/VAE
     data_axis: str = "data"              # mesh axis over frames
     model_axis: str = "model"            # mesh axis for tensor parallelism

@@ -68,10 +68,10 @@ class CLIPVisionEncoder(nn.Module):
         self.post_layernorm = LayerNorm32(c, cfg.layer_norm_eps)
         self.visual_projection = Dense(c, cfg.projection_dim, bias=False) if projection else None
 
-    def flax_init(self) -> None:
+    def flax_init(self, gen=None) -> None:
         """The class token's N(0, 0.02) init (``init_flax_default_`` hook)."""
         with torch.no_grad():
-            self.class_embedding.normal_(0.0, 0.02)
+            self.class_embedding.normal_(0.0, 0.02, generator=gen)
 
     def forward(self, pixels: torch.Tensor, project: bool = False) -> torch.Tensor:
         """pixels [B, S, S, 3] CLIP-normalized (S = cfg.image_size) -> the

@@ -40,7 +40,7 @@ class FrozenBN(nn.Module):
         self.mean = nn.Parameter(torch.zeros(c))
         self.var = nn.Parameter(torch.ones(c))
 
-    def flax_init(self):
+    def flax_init(self, gen=None):
         with torch.no_grad():
             self.weight.fill_(1.0)
             self.bias.zero_()

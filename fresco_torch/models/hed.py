@@ -46,7 +46,7 @@ class HED(nn.Module):
             setattr(self, f"block{i + 1}", _Block(in_ch, ch, layers, down))
             in_ch = ch
 
-    def flax_init(self):
+    def flax_init(self, gen=None):
         """Flax initializes ``norm`` to zeros."""
         with torch.no_grad():
             self.norm.zero_()

@@ -22,18 +22,19 @@ import torch.nn.functional as F
 
 
 class Conv2d(nn.Module):
-    """NHWC convolution, symmetric padding (Flax ``Conv2d`` wrapper)."""
+    """NHWC convolution, symmetric padding (Flax ``Conv2d`` wrapper);
+    ``groups`` as Flax's ``feature_group_count``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 1, bias: bool = True, dilation: int = 1):
+                 padding: int = 1, bias: bool = True, dilation: int = 1, groups: int = 1):
         super().__init__()
-        self.stride, self.padding, self.dilation = stride, padding, dilation
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2).to(self.weight.dtype), self.weight, self.bias,
-                     self.stride, self.padding, self.dilation)
+                     self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -138,7 +139,8 @@ def init_flax_default_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Flax's default initializers, in place: lecun-normal (truncated,
     fan-in) kernels and zero biases for Dense/Conv, ones/zeros for norms,
     N(0, 1/features) embeddings.  Modules flagged ``zero_init`` (the
-    ControlNet zero convs) get zero kernels, as their Flax twins do."""
+    ControlNet zero convs) get zero kernels, as their Flax twins do; a
+    module's own ``flax_init(gen)`` initializes its other parameters."""
     for m in module.modules():
         if isinstance(m, (Conv2d, nn.Linear)):
             if getattr(m, "zero_init", False):
@@ -154,5 +156,5 @@ def init_flax_default_(module: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight.shape[1]), generator=gen)
         if hasattr(m, "flax_init"):
-            m.flax_init()
+            m.flax_init(gen)
     return module

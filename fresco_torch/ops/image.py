@@ -8,8 +8,9 @@ depend on it (the card's machine has none), so ``resize_image`` and
   * ``INTER_LANCZOS4`` (upscaling): OpenCV's 8-tap coefficients, rounded
     to 11-bit fixed point, an integer horizontal pass, an integer vertical
     pass rounded half up from 22 fractional bits, edge pixels replicated;
-  * ``INTER_AREA`` (downscaling): the fractional-coverage weights of
-    ``propagate/guides.py``, rounded half to even;
+  * ``INTER_AREA``: downscaling, the fractional-coverage weights of
+    ``propagate/guides.py``, rounded half to even; where an axis grows,
+    OpenCV's two-tap fixed-point path;
   * ``GaussianBlur(9x9, sigma 0)``: sigma 1.7, the kernel in 8-bit fixed
     point with OpenCV's error diffusion (the centre tap takes the rest of
     256), integer passes rounded half up from 16 bits, reflect-101 border.
@@ -86,14 +87,54 @@ def _resize_lanczos4(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     return out if img.ndim == 3 else out[..., 0]
 
 
+def _area_up_tab(ssize: int, dsize: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """OpenCV's INTER_AREA coefficients for a resize that grows an axis
+    (its two-tap "area mode"): per destination index the source index, the
+    next one (clamped) and both weights in 11-bit fixed point."""
+    scale, inv = 1.0 / (dsize / ssize), dsize / ssize
+    i0 = np.zeros(dsize, np.int64)
+    wts = np.zeros((dsize, 2), np.int64)
+    for d in range(dsize):
+        sx = math.floor(d * scale)
+        fx = np.float32((d + 1) - (sx + 1) * inv)
+        fx = np.float32(0.0) if fx <= 0 else np.float32(fx - np.float32(math.floor(fx)))
+        if sx < 0:
+            fx, sx = np.float32(0.0), 0
+        if sx >= ssize - 1:
+            fx, sx = np.float32(0.0), ssize - 1
+        i0[d] = sx
+        wts[d] = np.rint(np.array([np.float32(1.0) - fx, fx], np.float32) * np.float32(2048))
+    i0 = torch.from_numpy(i0)
+    return i0, (i0 + 1).clamp(max=ssize - 1), torch.from_numpy(wts[:, 0]), torch.from_numpy(wts[:, 1])
+
+
+def _resize_area_up(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """``cv2.resize(INTER_AREA)`` on uint8 [H, W, C] where an axis grows:
+    an integer horizontal pass, then OpenCV's SIMD vertical pass
+    (``VResizeLinearVec_32s8u``: each row >> 4 times its weight, the high
+    16 bits, the sum rounded by 2 bits), which covers every column when the
+    row's W * C bytes are a multiple of the vector width (32 on AVX2), as
+    at MLSD's 512x512 input."""
+    h, w = x.shape[:2]
+    x0, x1, ax0, ax1 = _area_up_tab(w, nw)
+    y0, y1, ay0, ay1 = _area_up_tab(h, nh)
+    v = x.to(torch.int64)
+    rows = v[:, x0] * ax0[None, :, None] + v[:, x1] * ax1[None, :, None]
+    hi = ((rows[y0] >> 4) * ay0[:, None, None] >> 16) + ((rows[y1] >> 4) * ay1[:, None, None] >> 16)
+    return ((hi + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
 def _resize_area(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_AREA)`` on uint8."""
     from fresco_torch.propagate.guides import _resize_area as area_f32
 
     x = torch.from_numpy(np.ascontiguousarray(img))
     if x.ndim == 2:
         x = x[..., None]
     h, w = x.shape[:2]
-    if h % nh == 0 and w % nw == 0:
+    if nh > h or nw > w:
+        out = _resize_area_up(x, nh, nw).numpy()
+    elif h % nh == 0 and w % nw == 0:
         # integer scale: the block sum times 1/area rounded half to even,
         # except 2x2, whose vector path rounds half up
         ky, kx = h // nh, w // nw

@@ -16,14 +16,16 @@ initializers drawn from a ``torch.Generator`` seeded with ``seed``; then
 ``scripts/fetch_weights.py``'s layout (``_maybe_load_pretrained``: SD1.5
 UNet / VAE / text encoder under ``sd_path``, ``vae_path``, the ControlNet
 under ``controlnet_path`` or ``sd-controlnet-<type>``, GMFlow at
-``gmflow_path``, HED beside it, EGNet at ``sod_path``) through
+``gmflow_path``, the control detector beside it, EGNet at ``sod_path``) through
 ``models/convert.py``, and merges ``lora_path``.  The control detector
-is HED for ``controlnet_type: hed`` (its checkpoint, or random weights
-with ``random_aux_weights=True``), else OpenCV's canny where ``cv2`` can
-be imported, else none (``ModelBundle.detector`` must then be set);
-the depth, MLSD and OpenPose detectors are not ported and raise when
-their checkpoint is present.  ``ModelBundle.flow_fn`` overrides GMFlow
-as the flow source.
+is HED, MiDaS depth, M-LSD or the OpenPose body model for
+``controlnet_type`` hed, depth, mlsd or openpose / pose (from its
+checkpoint beside ``gmflow_path``, or random weights with
+``random_aux_weights=True``; OpenPose also needs ``cv2``), else OpenCV's
+canny where ``cv2`` can be imported, else none (``ModelBundle.detector``
+must then be set).  ``ModelBundle.flow_fn`` overrides GMFlow as the flow
+source.  A ``mesh_shape`` of more than one device raises: ``parallel/``
+is not ported.
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ class ModelBundle:
 
 def _no_detector(img: np.ndarray) -> np.ndarray:
     raise NotImplementedError(
-        "no control detector: HED needs ControlNetHED.pth beside gmflow_path (or "
+        "no control detector: HED, MiDaS, M-LSD and OpenPose need their checkpoint beside gmflow_path (or "
         "build_models(random_aux_weights=True)) and canny needs OpenCV (cv2); set ModelBundle.detector")
 
 
@@ -143,9 +145,10 @@ def build_models(config: FrescoConfig, *, tiny: bool = False, seed: int = 0,
     weights as one with ``load_weights=False``.  The UNet, ControlNet and
     VAE run in ``config.dtype``, the text encoder in float32, EGNet in
     ``config.aux_dtype``, GMFlow in float32 on weights rounded to
-    ``config.aux_dtype`` and HED in float32.
+    ``config.aux_dtype`` and the control detector in float32.
 
-    HED (for ``controlnet_type: hed``, full width only) and EGNet (for
+    The control detector (HED, MiDaS, M-LSD or OpenPose by
+    ``controlnet_type``, full width only) and EGNet (for
     ``use_saliency``) load their checkpoints; ``random_aux_weights=True``
     gives them random weights where the checkpoint is missing, so that the
     control detector and background smoothing run without it.  Without
@@ -318,37 +321,35 @@ def _loaded_module(cls, path: str, convert_fn, device, dtype, times: dict, name:
     return m
 
 
-# detectors of the JAX package that are not ported yet: controlnet_type ->
-# (checkpoint beside gmflow_path, the detector's name)
-_UNPORTED_DETECTORS = {"depth": ("dpt_hybrid-midas-501f0c75.pt", "MiDaS"),
-                       "mlsd": ("mlsd_large_512_fp32.pth", "MLSD"),
-                       "openpose": ("body_pose_model.pth", "OpenPose"),
-                       "pose": ("body_pose_model.pth", "OpenPose")}
-
-
 def _build_detector(config: FrescoConfig, tiny: bool, device, gen, random_aux_weights: bool,
                     times: dict | None = None):
-    """The control detector (fresco_tpu runner.py:172-227)."""
+    """The control detector (fresco_tpu runner.py:170-227): HED, MiDaS
+    depth, M-LSD or the OpenPose body model from its checkpoint beside
+    ``gmflow_path`` (random weights with ``random_aux_weights``), in
+    float32; else canny where ``cv2`` imports, else none."""
+    from fresco_torch.models import hed, midas, mlsd, openpose
+
     ctype = config.controlnet_type
     ckpt_dir = os.path.dirname(str(config.gmflow_path)) or "."
     times = {} if times is None else times
-    if ctype == "hed" and not tiny:
-        from fresco_torch.models.hed import HED, convert_hed, hed_detector
-
-        hed_path = os.path.join(ckpt_dir, "ControlNetHED.pth")
-        if os.path.exists(hed_path):
-            return functools.partial(
-                hed_detector, _loaded_module(HED, hed_path, convert_hed, device, torch.float32, times, "hed"))
-        if random_aux_weights:
-            return functools.partial(hed_detector, _random_module(HED, device, gen, torch.float32))
-        print("[fresco_torch] HED weights not found; falling back to canny")
-    if ctype in _UNPORTED_DETECTORS and not tiny:
-        fname, what = _UNPORTED_DETECTORS[ctype]
+    # controlnet_type -> (module, checkpoint, converter, the detector on the module, name)
+    detectors = {"hed": (hed.HED, "ControlNetHED.pth", hed.convert_hed, hed.hed_detector, "HED"),
+                 "depth": (midas.DPTHybridDepth, midas.CHECKPOINT, midas.convert_dpt_hybrid,
+                           midas.depth_detector, "MiDaS"),
+                 "mlsd": (mlsd.MLSDLarge, mlsd.CHECKPOINT, mlsd.convert_mlsd, mlsd.mlsd_detector, "MLSD"),
+                 "openpose": (openpose.BodyPose, openpose.CHECKPOINT, openpose.convert_openpose,
+                              openpose.openpose_detector, "OpenPose")}
+    spec = detectors.get("openpose" if ctype == "pose" else ctype)
+    if spec is not None and not tiny:
+        cls, fname, convert_fn, detect, what = spec
         path = os.path.join(ckpt_dir, fname)
-        if os.path.exists(path):
-            raise NotImplementedError(
-                f"controlnet_type {ctype!r}: the {what} detector is not ported yet, and its checkpoint "
-                f"{path} is present (the JAX package would run it); move the file away to use canny")
+        if os.path.exists(path) or random_aux_weights:
+            if cls is openpose.BodyPose and not _have_cv2():
+                raise ImportError("the OpenPose detector's INTER_CUBIC resizes and drawing need OpenCV (cv2), "
+                                  "which is not importable here")
+            model = (_loaded_module(cls, path, convert_fn, device, torch.float32, times, what.lower())
+                     if os.path.exists(path) else _random_module(cls, device, gen, torch.float32))
+            return functools.partial(detect, model)
         print(f"[fresco_torch] {what} weights not found; falling back to canny")
     if _have_cv2():
         return functools.partial(_canny_detector, low=config.canny_low, high=config.canny_high)
@@ -384,6 +385,10 @@ class FrescoPipeline:
         """``bundle``: the models (``build_models``; pass one built with
         ``random_aux_weights=True`` for random HED and EGNet weights), else
         a random-weight stack is built."""
+        if int(np.prod(config.mesh_shape)) > 1:
+            raise NotImplementedError(
+                f"mesh_shape {tuple(config.mesh_shape)}: running over a device mesh needs the parallel/ "
+                "modules, which fresco_torch does not port yet; use mesh_shape (1, 1)")
         self.config = config
         self.bundle = bundle or build_models(config, tiny=tiny, seed=config.seed, device=device)
         b = self.bundle

@@ -31,3 +31,13 @@ def test_schema_and_helpers_equal():
     for keys, bs in (([0, 3, 7, 9, 12, 20, 22, 30, 31, 40, 41], 8), (list(range(5)), 4),
                      (list(range(23)), 8)):
         assert jc.keyframe_sublists(keys, bs) == tc.keyframe_sublists(keys, bs)
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 4), (2, 2)])
+def test_a_device_mesh_raises_until_parallel_is_ported(mesh):
+    """The JAX pipeline shards over a mesh when prod(mesh_shape) > 1; the
+    port says it cannot, before it builds a model."""
+    from fresco_torch.pipeline.runner import FrescoPipeline
+
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        FrescoPipeline(tc.FrescoConfig(mesh_shape=mesh), tiny=True, device="cpu")

@@ -15,9 +15,9 @@
   weights agree to 1e-6 absolute, float16 ones to one float16 ulp.
   ``build_models(lora_path=...)`` moves exactly the targeted weights, by
   the delta (bit for bit against the same arithmetic).
-* The control detector: HED and EGNet load from their checkpoints; the
-  depth / MLSD / OpenPose detectors raise while their checkpoint is
-  present and fall back to canny (or none) where it is absent.
+* The control detector: HED, EGNet, MiDaS, M-LSD and OpenPose load from
+  their checkpoints, bit for bit; the detectors fall back to canny (or
+  none) where their checkpoint is absent.
 """
 import dataclasses
 import os
@@ -248,20 +248,66 @@ def test_hed_and_egnet_load_from_their_checkpoints(tmp_path):
     assert_same_state_dict(dict(sal.args[0].state_dict()), {k: v.to(torch.bfloat16) for k, v in eg_sd.items()})
 
 
+@pytest.fixture(scope="module")
+def detector_checkpoints(tmp_path_factory):
+    """Seeded checkpoints of the three detectors: MiDaS at a tiny config
+    (``test_torch_midas.TINY``), M-LSD and the OpenPose body model at full
+    width; {file name: (path, the port's state dict from it)}."""
+    import test_torch_midas
+    import test_torch_mlsd
+    import test_torch_openpose
+    from fresco_torch.models import midas, mlsd, openpose
+
+    root = tmp_path_factory.mktemp("detectors")
+    tiny = midas.DPTHybridDepth(**test_torch_midas.TINY)
+    sds = {midas.CHECKPOINT: (test_torch_midas.timm_checkpoint(0),
+                              lambda sd: midas.convert_dpt_hybrid(sd, model=tiny)),
+           mlsd.CHECKPOINT: (test_torch_mlsd.mlsd_checkpoint(0), mlsd.convert_mlsd),
+           openpose.CHECKPOINT: (test_torch_openpose.pose_checkpoint(openpose.BodyPose, 0, flat=True),
+                                 openpose.convert_openpose)}
+    out = {}
+    for fname, (sd, convert) in sds.items():
+        torch.save(sd, str(root / fname))
+        out[fname] = (str(root / fname), convert(sd))
+    return out
+
+
 @pytest.mark.parametrize("ctype,fname,what", [
     ("depth", "dpt_hybrid-midas-501f0c75.pt", "MiDaS"),
     ("mlsd", "mlsd_large_512_fp32.pth", "MLSD"),
     ("openpose", "body_pose_model.pth", "OpenPose"),
     ("pose", "body_pose_model.pth", "OpenPose"),
 ])
-def test_unported_detectors_raise_where_their_checkpoint_is(tmp_path, ctype, fname, what):
+def test_unported_detectors_raise_where_their_checkpoint_is(tmp_path, ctype, fname, what, detector_checkpoints,
+                                                            monkeypatch, capsys):
+    """Once unported (they raised where their checkpoint was), the three
+    detectors now load it, as the JAX package's ``_build_detector`` does;
+    without it they fall back to canny (or none), and tiny bundles never
+    load one.  OpenPose raises only without OpenCV."""
+    import functools
+
+    import test_torch_midas
+    from fresco_torch.models import midas, mlsd, openpose
+
+    detect = {"depth": midas.depth_detector, "mlsd": mlsd.mlsd_detector, "openpose": openpose.openpose_detector,
+              "pose": openpose.openpose_detector}[ctype]
+    monkeypatch.setattr(midas, "DPTHybridDepth", functools.partial(midas.DPTHybridDepth, **test_torch_midas.TINY))
     cfg, _ = _configs(tmp_path, controlnet_type=ctype)
     det = runner._build_detector(cfg, False, torch.device("cpu"), _gen(), False)
     want = runner._canny_detector if runner._have_cv2() else runner._no_detector
     assert getattr(det, "func", det) is want  # absent: the JAX package's canny fallback
-    (tmp_path / fname).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=what):
-        runner._build_detector(cfg, False, torch.device("cpu"), _gen(), False)
+    assert f"{what} weights not found" in capsys.readouterr().out
+    path, sd = detector_checkpoints[fname]
+    os.symlink(path, str(tmp_path / fname))
+    if ctype in ("openpose", "pose") and not runner._have_cv2():
+        with pytest.raises(ImportError, match="cv2"):
+            runner._build_detector(cfg, False, torch.device("cpu"), _gen(), False)
+        return
+    times = {}
+    det = runner._build_detector(cfg, False, torch.device("cpu"), _gen(), False, times)
+    assert det.func is detect
+    assert_same_state_dict(dict(det.args[0].state_dict()), sd)  # float32, as the JAX detectors
+    assert times[what.lower()]["path"] == str(tmp_path / fname)
     tiny = runner._build_detector(cfg, True, torch.device("cpu"), _gen(), False)
     assert getattr(tiny, "func", tiny) is want
 
