@@ -1,8 +1,8 @@
 """GPU smoke test of fresco_torch: kernels against their plain versions,
 then one full-width keyframe batch and one full-width propagation interval
 through the pipeline, the loaded-weights batch, the propagation entry
-points, and the control detectors with config_boxer's depth-controlled
-batch.
+points, the control detectors with config_boxer's depth-controlled
+batch, and the training path (the UNet step and GMFlow's).
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit:
@@ -130,6 +130,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                GMFlow) on the loaded weights: flash and the sign-gram pair
                must launch, the latents be finite, and the ControlNet's
                condition equal the detector's depth maps.
+ 15. train   : flash's gradient (F18): at the UNet's self-attention shapes
+               (S 4096 / 1024 / 256, d 40 / 80 / 160, batch 2 x 8 heads)
+               and one masked case with an empty row, the kernel's output
+               has a grad_fn and dq / dk / dv equal autograd through
+               naive_attention; forward + backward timed beside naive's and
+               SDPA's.  Then the UNet fine-tuning step at full SD1.5 width
+               (float32 parameters, bf16 compute, batch 2 at 512 px, 77x768
+               context, AdamW 1e-5), 3 steps: finite losses, moving
+               parameters, 16 flash launches a step (the counter zeroed
+               before); one step against the same step with naive_attention
+               forced.  GMFlow at full width, batch 2 at 384x512: two
+               supervised steps on SyntheticIndex pairs, two unsupervised on
+               make_inputs frames written as PNGs and read by
+               index_frame_dir and FlowLoader; one 64x64 step on the card
+               against the CPU.  The GMFlow training driver: 4 steps with
+               checkpoints, then --resume, bit-equal.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
@@ -2203,6 +2219,277 @@ def phase_detectors(seed: int, dev, gram_rows=None, res: int = 512):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- training
+TRAIN_ATTN = ((4096, 40), (1024, 80), (256, 160))  # the UNet's self-attention (S, d) at 512 px, batch 2 x 8 heads
+# flash's gradient on the card against autograd through naive_attention on the
+# same bf16 inputs, max |d| / max |grad|: the backward IS that VJP, recomputed
+# from the saved inputs.  Read 0 at every shape (H100 80GB HBM3, 700 W); the
+# limit allows a reduction in another order (bf16's step is 3.9e-3), where a
+# lost scale or mask moves the gradients by O(1)
+FLASH_GRAD_REL = 1e-3
+TRAIN_STEPS = 3
+TRAIN_FLASH_PER_STEP = 16  # self-attentions in one SD1.5 UNet forward (6 down, 1 mid, 9 up)
+# one UNet step with the kernel against the same step with naive_attention
+# forced (same weights, t, noise, bf16 compute): the kernel rounds P to bf16
+# before P·V.  Read: loss 4.2e-5 apart, gradients 7.9e-3 (conv_out) to
+# 2.0e-2 (conv_in, the far end of the backward) of their largest
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GRAD_REL = 5e-2
+TRAIN_GRAD_PARAMS = ("conv_in.weight", "down_0_attn_0.block.attn1.to_q.weight", "conv_out.weight")
+GMFLOW_HW = (384, 512)
+# one supervised GMFlow step at 64x64, float32 (TF32 off), card against CPU.
+# Read: loss 5.4e-6 apart, gradients 3.9e-5 of the largest
+GMFLOW_LOSS_REL = 1e-4
+GMFLOW_GRAD_REL = 1e-3
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|, on the host in float32."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def train_flash_grad(seed: int, dev) -> None:
+    """F18 on the card: flash's output carries a grad_fn, and its dq / dk /
+    dv equal autograd through naive_attention, at the UNet's self-attention
+    shapes and one masked case with empty rows; forward + backward timed
+    beside naive's and SDPA's."""
+    from fresco_torch.attention.flash import flash_attention, naive_attention
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 150)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [(f"self S={s} d={d}", s, d, False) for s, d in TRAIN_ATTN] + [("masked S=1024 d=80", 1024, 80, True)]
+    for name, s, d, masked in cases:
+        q, k, v, g = (torch.randn(2, 8, s, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+        mask = None
+        if masked:
+            mask = torch.rand(2, s, generator=gen, device=dev) > 0.5
+            mask[1] = False  # no valid key: zero output, zero gradients
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*qkv, mask)
+        if out.grad_fn is None:
+            fail(f"train flash {name}: the kernel's output has no grad_fn (F18)")
+        out.backward(g)
+        ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+        naive_attention(*ref_in, mask).backward(g)
+        rels = [_rel(a.grad, b.grad) for a, b in zip(qkv, ref_in)]
+        empty = all(bool((t[1] == 0).all()) for t in (out, *(x.grad for x in qkv))) if masked else None
+        times = {}
+        if dev.type == "cuda":
+            times = {"kernel": cuda_ms(lambda: flash_attention(*qkv, mask).backward(g), 5),
+                     "plain": cuda_ms(lambda: naive_attention(*qkv, mask).backward(g), 5)}
+            if not masked:
+                times["sdpa"] = cuda_ms(lambda: sdpa(*qkv).backward(g), 5)
+            times["kernel fwd"] = cuda_ms(lambda: flash_attention(q, k, v, mask), 5)
+        print(f"train flash {name} [2,8,{s},{d}] bf16: grad_fn {type(out.grad_fn).__name__}; dq/dk/dv max|d|/max|g| "
+              + "/".join(f"{r:.3e}" for r in rels) + f" (limit {FLASH_GRAD_REL})"
+              + ("" if empty is None else f"; empty row: output and gradients zero {empty}")
+              + "; ms forward+backward " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) + f" ({CARD})")
+        if max(rels) > FLASH_GRAD_REL or empty is False:
+            fail(f"train flash {name}: gradients differ from naive_attention's VJP")
+
+
+def _train_unet(seed: int, dev, cfg):
+    from fresco_torch.models.layers import set_compute_dtype
+    from fresco_torch.models.unet import UNet2DCondition
+
+    with torch.device("meta"):
+        unet = UNet2DCondition(cfg)
+    unet = _seeded_(unet.to_empty(device=dev), torch.Generator(device=dev).manual_seed(seed + 151))
+    return set_compute_dtype(unet.train().requires_grad_(True), torch.bfloat16)
+
+
+def train_unet(seed: int, dev, cfg=None, res: int = 512) -> None:
+    """The UNet fine-tuning step at full SD1.5 width: float32 parameters
+    computing in bf16, batch 2 at res px, AdamW 1e-5, TRAIN_STEPS steps
+    (flash launched in every self-attention, the gradient through it);
+    then one step with the kernel against the same step with naive_attention
+    forced in its place."""
+    from fresco_torch.attention import fresco_attention
+    from fresco_torch.attention.flash import flash_attention, naive_attention
+    from fresco_torch.diffusion.scheduler import DDPMScheduler
+    from fresco_torch.models.unet import UNetConfig
+    from fresco_torch.parallel import TrainState, make_train_state, train_step
+
+    cfg = cfg or UNetConfig()
+    gen = torch.Generator(device=dev).manual_seed(seed + 152)
+    lat = torch.randn(2, res // 8, res // 8, 4, generator=gen, device=dev)
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, generator=gen, device=dev)
+    sched = DDPMScheduler()
+    _sync(dev)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    unet = _train_unet(seed, dev, cfg)
+    state = make_train_state(unet, lr=1e-5)
+    n_params = sum(p.numel() for p in unet.parameters())
+    _sync(dev)
+    t_build = time.perf_counter() - t0
+    watch = {n: p for n, p in unet.named_parameters() if n in TRAIN_GRAD_PARAMS}
+    flash_attention.launches = 0
+    secs, losses, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = {n: p.detach().clone() for n, p in watch.items()}
+        n0 = flash_attention.launches
+        t0 = time.perf_counter()
+        state, loss = train_step(state, sched, lat, ctx, seed=seed)
+        loss = float(loss)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+        per_step.append(flash_attention.launches - n0)
+        if not math.isfinite(loss):
+            fail(f"train unet: non-finite loss {loss}")
+        still = [n for n, p in watch.items() if torch.equal(p.detach(), before[n])]
+        if still:
+            fail(f"train unet: parameters did not move: {still}")
+    launches = flash_attention.launches
+    peak = _peak_gib(dev)
+    print(f"train unet: UNet {cfg.block_out_channels} {n_params / 1e6:.1f} M float32 parameters, bf16 compute, batch 2 at {res} px "
+          f"({res // 8}x{res // 8}x4 latents), 77x{cfg.cross_attention_dim} context, AdamW 1e-5: built in "
+          f"{t_build:.2f} s; {TRAIN_STEPS} steps, losses {', '.join(f'{x:.5f}' for x in losses)}; step seconds "
+          f"{', '.join(f'{x:.3f}' for x in secs)} (median after the first {float(np.median(secs[1:])):.3f}); peak "
+          f"device memory {peak:.2f} GiB; flash launches {launches} ({per_step} a step) ({CARD})")
+    if dev.type == "cuda" and per_step != [TRAIN_FLASH_PER_STEP] * TRAIN_STEPS:
+        fail(f"train unet: flash launched {per_step} times a step, expected {TRAIN_FLASH_PER_STEP}")
+
+    # the kernel step against the naive step: the same weights, t and noise
+    t = torch.randint(0, 1000, (2,), generator=gen, device=dev)
+    noise = torch.randn(lat.shape, generator=gen, device=dev)
+    del state
+    results = {}
+    for name, attn in (("kernel", flash_attention), ("naive", naive_attention)):
+        fresco_attention.flash_attention = attn
+        try:
+            st = TrainState(unet, torch.optim.SGD(unet.parameters(), lr=0.0))
+            _, loss = train_step(st, sched, lat, ctx, t=t, noise=noise)
+            results[name] = (float(loss), {n: p.grad.detach().clone() for n, p in watch.items()})
+        finally:
+            fresco_attention.flash_attention = flash_attention
+    (lk, gk), (ln, gn) = results["kernel"], results["naive"]
+    loss_rel = abs(lk - ln) / abs(ln)
+    grad_rel = {n: _rel(gk[n], gn[n]) for n in TRAIN_GRAD_PARAMS}
+    print(f"train unet: one step with the kernel against naive_attention forced (same weights, t, noise): loss "
+          f"{lk:.6f} vs {ln:.6f}, relative {loss_rel:.3e} (limit {TRAIN_LOSS_REL}); gradients max|d|/max|g| "
+          + ", ".join(f"{n} {r:.3e}" for n, r in grad_rel.items()) + f" (limit {TRAIN_GRAD_REL})")
+    if loss_rel > TRAIN_LOSS_REL or max(grad_rel.values()) > TRAIN_GRAD_REL:
+        fail("train unet: the kernel step and the naive step disagree")
+    del unet, results, gk, gn, watch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_gmflow(seed: int, dev, cfg=None, hw=GMFLOW_HW) -> None:
+    """GMFlow at full width, batch 2: two supervised steps on SyntheticIndex
+    pairs and two unsupervised steps on make_inputs frames written as PNGs
+    and read by index_frame_dir and FlowLoader; then one supervised 64x64
+    step on the card against the same step on the CPU, float32."""
+    import copy as copy_
+    import tempfile
+
+    from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
+    from fresco_torch.models.layers import init_flax_default_
+    from fresco_torch.parallel import flow_data as fd
+    from fresco_torch.parallel.flow_train import flow_train_step, make_flow_train_state
+    from fresco_torch.scripts.train_gmflow import SyntheticIndex
+
+    cfg = cfg or GMFlowConfig()
+    cpu = torch.device("cpu")
+    src = init_flax_default_(GMFlow(cfg), torch.Generator().manual_seed(seed + 153))
+    for mode in ("supervised", "unsupervised"):
+        model = copy_.deepcopy(src).to(dev)
+        state = make_flow_train_state(model, steps=4)
+        with tempfile.TemporaryDirectory(prefix="fresco_frames_") as root:
+            if mode == "supervised":
+                index = SyntheticIndex(size=4, hw=hw, seed=seed)
+            else:
+                from PIL import Image  # flow_data.read_image decodes through Pillow
+
+                for i, f in enumerate(make_inputs(seed, 5, hw)[0]):
+                    Image.fromarray(f).save(f"{root}/{i:04d}.png")
+                index = fd.index_frame_dir(root)
+            _sync(dev)
+            _reset_peak(dev)
+            losses, secs = [], []
+            t_all = time.perf_counter()
+            for batch in fd.FlowLoader(index, 2, seed=seed, device=dev):
+                t0 = time.perf_counter()
+                extra = (batch["flow"], batch["valid"]) if mode == "supervised" else ()
+                state, loss = flow_train_step(state, batch["img0"], batch["img1"], *extra)
+                losses.append(float(loss))
+                _sync(dev)
+                secs.append(time.perf_counter() - t0)
+            t_all = time.perf_counter() - t_all
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            fail(f"train gmflow {mode}: losses {losses}")
+        print(f"train gmflow {mode}: GMFlow {cfg.feature_channels} channels, {cfg.num_transformer_layers} layers, "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+              f"parameters, batch 2 at {hw[0]}x{hw[1]}, {len(losses)} steps ({len(index)} pairs from "
+              f"{'SyntheticIndex' if mode == 'supervised' else 'PNGs via index_frame_dir'}, FlowLoader): losses "
+              f"{', '.join(f'{x:.5f}' for x in losses)}; step seconds {', '.join(f'{x:.3f}' for x in secs)}, "
+              f"{t_all:.2f} s with loading; peak device memory {_peak_gib(dev):.2f} GiB ({CARD})")
+        del model, state
+
+    # card vs CPU: one supervised step at 64x64, float32
+    img0, img1, flow, valid = (torch.from_numpy(a[None]).repeat(2, *[1] * a.ndim)
+                               for a in SyntheticIndex(size=1, hw=(64, 64), seed=seed).load(0))
+    out = []
+    for d in (dev, cpu):
+        model = copy_.deepcopy(src).to(d)
+        state = make_flow_train_state(model, steps=4)
+        _, loss = flow_train_step(state, *(x.to(d) for x in (img0, img1, flow, valid)))
+        out.append((float(loss), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+    (lc, gc), (lh, gh) = out
+    loss_rel = abs(lc - lh) / abs(lh)
+    grad_abs = max((gc[n] - gh[n]).abs().max().item() for n in gh)
+    grad_max = max(g.abs().max().item() for g in gh.values())
+    print(f"train gmflow 64x64 supervised step, float32, card vs CPU: loss {lc:.6f} vs {lh:.6f}, relative "
+          f"{loss_rel:.3e} (limit {GMFLOW_LOSS_REL}); largest gradient difference {grad_abs:.3e} of largest "
+          f"gradient {grad_max:.3e}, {grad_abs / grad_max:.3e} (limit {GMFLOW_GRAD_REL})")
+    if loss_rel > GMFLOW_LOSS_REL or grad_abs / grad_max > GMFLOW_GRAD_REL:
+        fail("train gmflow: card and CPU disagree")
+
+
+def train_driver(seed: int, dev, tiny: bool = False) -> None:
+    """fresco_torch/scripts/train_gmflow.py --synthetic --steps 4 --ckpt-every 2
+    on the card, then --resume of step_2: the loaded parameters bit-equal to
+    the saved ones."""
+    import os
+    import tempfile
+
+    from fresco_torch.scripts import train_gmflow as drv
+    from fresco_torch.utils.checkpoint import load_params
+
+    with tempfile.TemporaryDirectory(prefix="fresco_ckpt_") as root:
+        common = ["--synthetic", "--device", str(dev), "--seed", str(seed)] + (["--tiny"] if tiny else [])
+        t0 = time.perf_counter()
+        run = drv.main(common + ["--steps", "4", "--ckpt-every", "2", "--ckpt-dir", root, "--log-every", "1"])
+        _sync(dev)
+        t_run = time.perf_counter() - t0
+        files = sorted(os.listdir(root))
+        final = load_params(f"{root}/final")
+        saved_equal = all(torch.equal(final[k], v.cpu()) for k, v in run["model"].state_dict().items())
+        back = drv.main(common + ["--steps", "0", "--resume", f"{root}/step_2"])
+        step2 = load_params(f"{root}/step_2")
+        loaded_equal = all(torch.equal(step2[k], v.cpu()) for k, v in back["model"].state_dict().items())
+        moved = any(not torch.equal(step2[k], final[k]) for k in final)
+    print(f"train driver: train_gmflow --synthetic --steps 4 --ckpt-every 2 on {dev}: {run['done']} steps in "
+          f"{t_run:.2f} s, losses {', '.join(f'{x:.4f}' for x in run['losses'])}, files {files}; final equal to the "
+          f"trained module {saved_equal}; --resume step_2 loads it bit-equal {loaded_equal}; steps 3-4 moved the "
+          f"weights {moved}")
+    if run["done"] != 4 or files != ["final", "step_2", "step_4"] or not (saved_equal and loaded_equal and moved):
+        fail("train driver: checkpoint or resume failed")
+
+
+def phase_train(seed: int, dev, unet_cfg=None, res: int = 512, gmflow_cfg=None, gmflow_hw=GMFLOW_HW,
+                tiny_driver: bool = False) -> None:
+    """Phase 15: flash's gradient (F18), the UNet fine-tuning step and the
+    GMFlow steps at full width, and the GMFlow training driver."""
+    train_flash_grad(seed, dev)
+    train_unet(seed, dev, unet_cfg, res)
+    train_gmflow(seed, dev, gmflow_cfg, gmflow_hw)
+    train_driver(seed, dev, tiny_driver)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2246,6 +2533,7 @@ def main() -> None:
     phase_weights(args.seed, dev, gram_rows)
     phase_entry_points(args.seed, dev)
     phase_detectors(args.seed, dev, gram_rows)
+    phase_train(args.seed, dev)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

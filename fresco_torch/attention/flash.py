@@ -19,8 +19,19 @@ tiles cost nothing, and needs no scratch from the wrapper.  The softmax
 scale must be positive.
 
 ``flash_attention`` runs the kernel for CUDA tensors (bf16 only; it
-raises otherwise) and ``naive_attention`` for CPU tensors.  Forward only:
-the pipeline never differentiates through attention.
+raises otherwise) and ``naive_attention`` for CPU tensors.
+
+Gradients.  Where grad mode is on and q, k or v requires grad, the call
+goes through ``_FlashAttention``, an ``autograd.Function`` whose forward
+is the same kernel launch and whose backward is the VJP of
+``naive_attention`` in float32, recomputed from the saved q, k, v: the
+JAX package's custom VJP (``fresco_tpu/attention/flash.py:135-157``),
+which has no backward kernel either, so this plain-math backward is the
+port of it.  The mask gets no gradient, a query row with no valid key
+gets zero gradients, and the scale is a constant.  The backward holds
+[B, H, Sq, Sk] float32 scores and probabilities while it runs.  Under
+``torch.no_grad()``, or for inputs that require no grad, the kernel is
+launched directly and nothing is saved.
 """
 from __future__ import annotations
 
@@ -81,6 +92,21 @@ def flash_attention(q, k, v, key_mask=None, *, scale=None):
             raise ValueError("flash_attention: key_mask on another device")
         if key_mask.stride(-1) != 1:
             raise ValueError("flash_attention: key_mask needs a unit-stride key axis")
+    return _run(q, k, v, key_mask, float(scale))
+
+
+def _run(q, k, v, key_mask, scale: float):
+    """The kernel on checked inputs: through ``_FlashAttention`` where a
+    gradient is needed, else one bare launch (nothing saved)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, key_mask, scale)
+    return _launch(q, k, v, key_mask, scale)
+
+
+def _launch(q, k, v, key_mask, scale: float):
+    """One launch of the kernel on checked CUDA inputs -> [B,H,Sq,D]."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = kernels.load()
     rc = lib.fresco_flash_attn_fwd(
@@ -89,11 +115,30 @@ def flash_attention(q, k, v, key_mask=None, *, scale=None):
         b, h, sq, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         key_mask.stride(0) if key_mask is not None else 0,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(rc, "flash_attn_fwd")
     kernels.count_launch(flash_attention)
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward with the naive attention's VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        ctx.save_for_backward(q, k, v, key_mask)
+        ctx.scale = scale
+        return _launch(q, k, v, key_mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = naive_attention(*qkv, key_mask, scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
 
 
 flash_attention.launches = 0

@@ -276,10 +276,11 @@ class GMFlow(nn.Module):
         self.upsampler_0 = Conv2d(2 + c, 256, 3, 1, 1)
         self.upsampler_2 = Conv2d(256, cfg.upsample_factor ** 2 * 9, 1, 1, 0)
 
-    @torch.no_grad()
     def forward(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
         """img0/img1 [B, H, W, 3] in [0, 255] -> flow [2B, H, W, 2]:
-        forward (img0 -> img1), then backward; float32."""
+        forward (img0 -> img1), then backward; float32.  Differentiable
+        (``parallel/flow_train.py`` trains through it); inference callers
+        hold their own ``torch.no_grad()``."""
         c = self.cfg
         dev = img0.device
         mean = torch.tensor([0.485, 0.456, 0.406], device=dev) * 255.0

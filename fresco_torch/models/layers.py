@@ -23,7 +23,10 @@ import torch.nn.functional as F
 
 class Conv2d(nn.Module):
     """NHWC convolution, symmetric padding (Flax ``Conv2d`` wrapper);
-    ``groups`` as Flax's ``feature_group_count``."""
+    ``groups`` as Flax's ``feature_group_count``.  ``compute_dtype``
+    (``set_compute_dtype``) as for ``Dense``."""
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, bias: bool = True, dilation: int = 1, groups: int = 1):
@@ -33,17 +36,47 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(self.weight.dtype), self.weight, self.bias,
-                     self.stride, self.padding, self.dilation, self.groups)
+        w, b = _in_compute_dtype(self)
+        xc = x.permute(0, 3, 1, 2).to(w.dtype)
+        if xc.device.type == "cpu" and torch.is_grad_enabled() and (xc.requires_grad or w.requires_grad):
+            # PyTorch's CPU backward of a strided 1x1 convolution over this
+            # channels-last view corrupts the heap with 8 threads (GMFlow's
+            # downsample convs); it runs safely on contiguous NCHW
+            xc = xc.contiguous()
+        y = F.conv2d(xc, w, b, self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` that casts its input to the parameter dtype (Flax
-    ``Dense(dtype=...)`` semantics)."""
+    ``Dense(dtype=...)`` semantics), or to ``compute_dtype`` where one is
+    set: then the weight and bias are cast inside ``forward`` too, so
+    autograd carries the gradient to parameters of another dtype (Flax's
+    ``param_dtype`` float32 under a bf16 ``dtype``)."""
+
+    compute_dtype: torch.dtype | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        w, b = _in_compute_dtype(self)
+        return F.linear(x.to(w.dtype), w, b)
+
+
+def _in_compute_dtype(m: nn.Module):
+    """(weight, bias) of a Conv2d / Dense in its compute dtype; without
+    one, the parameters themselves."""
+    if m.compute_dtype is None or m.compute_dtype == m.weight.dtype:
+        return m.weight, m.bias
+    return m.weight.to(m.compute_dtype), None if m.bias is None else m.bias.to(m.compute_dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype | None) -> nn.Module:
+    """Compute every ``Conv2d`` / ``Dense`` of ``module`` in ``dtype``
+    whatever its parameters' dtype (``None``: the parameter dtype again).
+    Norms compute in at least float32 either way, as under ``cast_model``."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Dense)):
+            m.compute_dtype = dtype
+    return module
 
 
 class GroupNorm32(nn.Module):

@@ -263,7 +263,8 @@ class UNet2DCondition(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+        """The compute dtype: ``set_compute_dtype``'s, else the parameters'."""
+        return self.conv_in.compute_dtype or self.conv_in.weight.dtype
 
     def forward(
         self,

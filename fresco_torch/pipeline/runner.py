@@ -428,7 +428,12 @@ class FrescoPipeline:
         if gm is None:
             raise RuntimeError("no flow source: the bundle has neither flow_fn nor gmflow")
         dt = aux_dtype(self.config)
-        return lambda a, b: gm(a.to(dt).float(), b.to(dt).float())
+
+        @torch.no_grad()
+        def flow_fn(a, b):
+            return gm(a.to(dt).float(), b.to(dt).float())
+
+        return flow_fn
 
     def _interframe(self, frames_255):
         flow_fn = self.bundle.flow_fn or self.gmflow_flow_fn()

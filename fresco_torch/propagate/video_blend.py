@@ -235,7 +235,12 @@ def default_flow_fn(gmflow_path: str | None = None, device: torch.device | str |
         from fresco_torch.pipeline.runner import _loaded_module
 
         model = _loaded_module(GMFlow, path, convert_gmflow, resolve_device(device), torch.float32, {}, "gmflow")
-        return lambda a, b: model(a.float(), b.float())
+
+        @torch.no_grad()
+        def flow_fn(a, b):
+            return model(a.float(), b.float())
+
+        return flow_fn
     from fresco_torch.utils.classic_flow import pairwise_flow_fn
 
     try:

@@ -12,7 +12,11 @@ pixels, the kernel's match must be one the plain arithmetic reaches when
 comparisons within 1e-5 relative of a tie go either way.  Flash: 5e-3 absolute and 1e-2 relative Frobenius on
 unit-variance inputs — the kernel rounds P to bf16 and writes bf16, the
 plain version is float32 math on the same bf16 inputs; a skipped or
-doubled key tile moves either far more.  Sign-gram (bf16 and float32):
+doubled key tile moves either far more.  Flash's gradient: the backward is
+the naive attention's VJP recomputed from the saved bf16 inputs, so dq,
+dk, dv agree with autograd through ``naive_attention`` on the same inputs
+to 1e-3 of the largest gradient (bf16's step is 3.9e-3), zeros on the
+empty row.  Sign-gram (bf16 and float32):
 C is built with a margin of ~1 around every sign, so both compute the
 same S (in bf16, S itself is compared bit for bit) and the f32 outputs
 agree to 1e-5 relative Frobenius.  Batched
@@ -106,6 +110,34 @@ def test_flash_kernel_matches_plain(cuda_device, h, sq, sk, d, mask_kind, layout
     diff = out.float() - ref
     assert diff.abs().max().item() < 5e-3
     assert (diff.norm() / ref.norm()).item() < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,d", [pytest.param(1024, 80, id="1024-80"), pytest.param(256, 160, id="256-160")])
+def test_flash_kernel_gradient(cuda_device, sq, d):
+    """F18: on the card the kernel's output carries a grad_fn when q, k, v
+    require grad, and its dq / dk / dv are the naive attention's VJP; under
+    no_grad the output carries none."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(2, 8, sq, d, device=cuda_device, generator=g).to(torch.bfloat16) for _ in range(3))
+    mask = _flash_mask("random", sq, cuda_device, g)
+    go = torch.randn(2, 8, sq, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        assert flash_attention(q, k, v, mask).grad_fn is None
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(*qkv, mask)
+    assert flash_attention.launches == before + 1
+    assert out.grad_fn is not None
+    out.backward(go)
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    naive_attention(*ref_in, mask).backward(go)
+    for t, r in zip(qkv, ref_in):
+        assert t.grad.dtype == torch.bfloat16
+        scale = r.grad.float().abs().max().item()
+        assert scale > 0
+        assert (t.grad.float() - r.grad.float()).abs().max().item() <= 1e-3 * scale
+        assert (t.grad[1] == 0).all()
 
 
 @pytest.mark.cuda

@@ -79,10 +79,12 @@ def test_tiny_gmflow_matches_jax(tiny_pair, aux):
         tmod = tg.GMFlow(tg.GMFlowConfig.tiny())
         tmod.load_state_dict(tm.state_dict())
         tmod = tmod.to(torch.bfloat16).float()  # weights rounded, as build_models does
-        out = tmod(*(torch.from_numpy(t).to(torch.bfloat16).float() for t in (a, b)))
+        with torch.no_grad():  # GMFlow.forward is differentiable: inference holds its own no_grad
+            out = tmod(*(torch.from_numpy(t).to(torch.bfloat16).float() for t in (a, b)))
     else:
         ref = jm.apply(params, jnp.asarray(a), jnp.asarray(b))
-        out = tm(torch.from_numpy(a), torch.from_numpy(b))
+        with torch.no_grad():
+            out = tm(torch.from_numpy(a), torch.from_numpy(b))
     ref = np.asarray(ref)
     assert out.dtype == torch.float32 and out.shape == (4, 64, 64, 2)
     err = np.abs(out.numpy() - ref).max()
