@@ -2,7 +2,8 @@
 then one full-width keyframe batch and one full-width propagation interval
 through the pipeline, the loaded-weights batch, the propagation entry
 points, the control detectors with config_boxer's depth-controlled
-batch, and the training path (the UNet step and GMFlow's).
+batch, the training path (the UNet step and GMFlow's), and the WebUI's
+handlers on config_music.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit:
@@ -146,6 +147,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                index_frame_dir and FlowLoader; one 64x64 step on the card
                against the CPU.  The GMFlow training driver: 4 steps with
                checkpoints, then --resume, bit-equal.
+ 16. webui   : the WebUI's handlers on config/config_music.yaml read through
+               example_inputs, on data/music.mp4 decoded by this machine's
+               cv2 (a failed decode fails the phase) and cut with frame_count
+               to 48 frames at 512x640, config_music's steps, intervals cut
+               to 4 / 8 (10 keyframes, two batches), HED and EGNet with
+               seeded random weights: process1; a second get_pipeline with
+               12 steps, strength 0.75 and the spatial- and temporal-guided
+               attentions off, which must return the same pipeline without a
+               second build_models, and process1 again; process2 into
+               blend.mp4 (48 frames read back); a controlnet_type change to
+               depth, which must rebuild.  Each action's wall, peak memory and
+               launches; all five kernels must launch over the phase.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
@@ -562,7 +575,6 @@ def prompts_for(cfg, n):
 def phase_small(seed: int, dev):
     """Small widths at 64 px: the card's bf16 kernel path against the CPU's
     float32 plain path with the same (bf16-representable) weights and noise."""
-    from fresco_torch.diffusion.scheduler import DDPMScheduler
     from fresco_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
     from fresco_torch.models.controlnet import ControlNet
     from fresco_torch.models.layers import cast_model, init_flax_default_
@@ -594,8 +606,7 @@ def phase_small(seed: int, dev):
     for device, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
         ms = [cast_model(copy.deepcopy(m).to(device), dtype if i < 3 else torch.float32).eval()
               for i, m in enumerate(mods)]
-        bundle = ModelBundle(ms[0], ms[1], ms[2], ms[3], DDPMScheduler(num_inference_steps=8),
-                             HashTokenizer(ccfg.vocab_size), detector, device,
+        bundle = ModelBundle(ms[0], ms[1], ms[2], ms[3], HashTokenizer(ccfg.vocab_size), detector, device,
                              flow_fn=lambda a, b, d=device: torch.from_numpy(flows).to(d))
         pipe = FrescoPipeline(cfg.replace(dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
                                           gram_dtype="bfloat16" if dtype == torch.bfloat16 else "float32"),
@@ -1351,6 +1362,7 @@ def _sync(dev) -> None:
 
 def _reset_peak(dev) -> None:
     if dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # also starts CUDA where no phase before has
         torch.cuda.reset_peak_memory_stats(dev)
 
 
@@ -2490,6 +2502,142 @@ def phase_train(seed: int, dev, unet_cfg=None, res: int = 512, gmflow_cfg=None, 
     train_driver(seed, dev, tiny_driver)
 
 
+# ---------------------------------------------------------------- webui
+WEBUI_FRAMES = 48            # data/music.mp4 cut with the WebUI's frame_count
+WEBUI_INTERVALS = (4, 8)     # config_music's 10 / 30 select 3 keyframes in 48 frames (one batch); 4 / 8 select 10
+WEBUI_SECOND = dict(num_inference_steps=12, x0_strength=0.75, use_intraattn=False, use_interattn=False)
+
+
+def phase_webui(seed: int, dev, tiny: bool = False, n: int = WEBUI_FRAMES, res: int | None = None) -> None:
+    """Phase 16: the WebUI's handlers on config_music from its file, read
+    through example_inputs: process1, a second get_pipeline with other steps,
+    strength and attention toggles (the same pipeline, no second
+    build_models) and process1 again, process2 into blend.mp4, then a
+    controlnet_type change to depth, which must rebuild.  The clip is decoded
+    with this machine's cv2; a decode that fails raises."""
+    import inspect
+    import os
+    import tempfile
+
+    import cv2
+    from PIL import Image
+
+    from fresco_torch import kernels, webui
+    from fresco_torch.ops.image import resize_image
+    from fresco_torch.pipeline import runner
+    from fresco_torch.utils import clips
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    names = list(inspect.signature(webui.ui_to_config).parameters)
+    ui = dict(zip(names, webui.example_inputs(os.path.join(root, "config", "config_music.yaml"))))
+    ui["file_path"] = os.path.normpath(os.path.join(root, ui["file_path"]))
+    decoded = clips.read_frames(ui["file_path"], n)
+    if decoded is None or len(decoded) != n:
+        fail(f"webui: decoding {ui['file_path']} gave {None if decoded is None else len(decoded)} frames, "
+             f"not {n}")
+    print(f"webui: {ui['file_path']} decoded by cv2: {n} frames {decoded[0].shape[1]}x{decoded[0].shape[0]}")
+    mininterv, maxinterv = WEBUI_INTERVALS
+    ui.update(frame_count=n, mininterv=mininterv, maxinterv=maxinterv, seed=seed)
+    if res is not None:
+        ui["resolution"] = res
+    if tiny:
+        ui.update(num_inference_steps=4, x0_strength=0.75)
+    builds = []
+    real_build = runner.build_models
+
+    def counting_build(config, **kw):
+        builds.append(config.controlnet_type)
+        return real_build(config, **kw)
+
+    def detector_name(pipe) -> str:
+        return getattr(pipe.bundle.detector, "func", pipe.bundle.detector).__name__
+
+    def action(label, fn):
+        before = kernels.launches()
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in kernels.launches().items()}
+        print(f"webui: {label}: {wall:.2f} s, peak {_peak_gib(dev):.2f} GiB, launches {delta}, {CARD}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ui["save_path"] = os.path.join(tmp, "music") + os.sep
+        old_state = webui.STATE
+        webui.STATE = webui.GlobalState(device=dev, random_aux_weights=True)
+        runner.build_models = counting_build
+        try:
+            kernels.reset_launches()
+            cfg = webui.ui_to_config(*[ui[k] for k in names])
+            keys = action("process1", lambda: webui.process1(cfg, tiny=tiny))
+            pipe = webui.STATE.pipeline
+            written = sorted(os.listdir(os.path.join(cfg.save_path, "video")))
+            if written != [f"{i:04d}.png" for i in range(n)]:
+                fail(f"webui: process1 wrote {len(written)} input frames, not {n}")
+            for i in (0, n - 1):
+                png = np.asarray(Image.open(os.path.join(cfg.save_path, "video", f"{i:04d}.png")))
+                if not np.array_equal(png, resize_image(decoded[i], cfg.resolution)):
+                    fail(f"webui: frame {i} written by process1 is not the decoded clip's")
+            batches = runner.keyframe_sublists(keys, cfg.batch_size)
+            det = detector_name(pipe)
+            print(f"webui: {len(keys)} keyframes {keys} in {len(batches)} batches, frames "
+                  f"{png.shape[1]}x{png.shape[0]}, detector {det}, saliency {'on' if pipe.bundle.saliency_fn else 'off'}")
+            if len(batches) < 2:
+                fail(f"webui: {len(batches)} keyframe batch; the phase needs two")
+            if not tiny and (det != "hed_detector" or pipe.bundle.saliency_fn is None):
+                fail(f"webui: config_music built detector {det} and saliency {pipe.bundle.saliency_fn}")
+
+            ui.update(WEBUI_SECOND)
+            cfg2 = webui.ui_to_config(*[ui[k] for k in names])
+            pipe2 = action("get_pipeline (steps, strength, attention toggles)",
+                           lambda: webui.STATE.get_pipeline(cfg2, tiny=tiny))
+            if pipe2 is not pipe or builds != [cfg.controlnet_type]:
+                fail(f"webui: the second get_pipeline rebuilt (builds {builds})")
+            sc = pipe.sampler.scheduler
+            if (pipe.config is not cfg2 or sc.num_inference_steps != cfg2.num_inference_steps
+                    or pipe._base_sampler_cfg.num_warmup_steps != cfg2.num_warmup_steps
+                    or pipe._base_sampler_cfg.step_interattn_end <= 1000):
+                fail("webui: set_config did not take the new steps, strength and toggles")
+            keys2 = action("process1 again", lambda: webui.process1(cfg2, tiny=tiny))
+            if keys2 != keys or builds != [cfg.controlnet_type]:
+                fail(f"webui: the second process1 gave keys {keys2} with builds {builds}")
+
+            out = action("process2", lambda: webui.process2(cfg2, keys2))
+            cap = cv2.VideoCapture(out)
+            shown = 0
+            while True:
+                ok, f = cap.read()
+                if not ok:
+                    break
+                shown += 1
+                if f.shape != png.shape:
+                    fail(f"webui: blend.mp4 frame of shape {f.shape}, not {png.shape}")
+            cap.release()
+            blended = sorted(os.listdir(os.path.join(cfg.save_path, "blend")))
+            print(f"webui: blend.mp4 {os.path.getsize(out)} bytes, {shown} frames read back, {len(blended)} PNGs")
+            if shown != n or len(blended) != n:
+                fail(f"webui: blend.mp4 holds {shown} frames and blend/ {len(blended)}, not {n}")
+
+            ui["controlnet_type"] = "depth"
+            cfg3 = webui.ui_to_config(*[ui[k] for k in names])
+            del pipe, pipe2  # get_pipeline drops its own reference before the depth build
+            pipe3 = action("get_pipeline (controlnet_type depth)", lambda: webui.STATE.get_pipeline(cfg3, tiny=tiny))
+            det = detector_name(pipe3)
+            depth = pipe3.bundle.detector(resize_image(decoded[0], cfg3.resolution))
+            print(f"webui: rebuilt for depth: builds {builds}, detector {det}, map {depth.shape} {depth.dtype}")
+            if builds != [cfg.controlnet_type, "depth"] or (not tiny and det != "depth_detector"):
+                fail(f"webui: the depth change did not rebuild once into MiDaS (builds {builds}, detector {det})")
+        finally:
+            runner.build_models = real_build
+            webui.STATE = old_state
+    launches = kernels.launches()
+    print(f"webui: launches over the phase {launches} (bmm as the sign-gram apply), {CARD}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"webui did not launch every main-path kernel: {launches}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2534,6 +2682,7 @@ def main() -> None:
     phase_entry_points(args.seed, dev)
     phase_detectors(args.seed, dev, gram_rows)
     phase_train(args.seed, dev)
+    phase_webui(args.seed, dev)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

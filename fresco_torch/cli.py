@@ -29,14 +29,18 @@ from fresco_torch.core.config import load_config
 
 
 def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_synthesis: bool = False,
-               sync_phases: bool = False, device=None):
+               sync_phases: bool = False, device=None, random_aux_weights: bool = False):
     """Keyframes, then (with ``config.run_ebsynth``) propagation and the
     consistency report.  Returns the report (also in metrics.json), or
-    None when propagation was skipped."""
-    from fresco_torch.pipeline.runner import FrescoPipeline
+    None when propagation was skipped.  ``random_aux_weights``: the control
+    detector and EGNet get seeded random weights where their checkpoints
+    are missing (``build_models``), so that they run without them."""
+    from fresco_torch.pipeline.runner import FrescoPipeline, build_models
 
     t0 = time.time()
-    pipe = FrescoPipeline(config, tiny=tiny, device=device)
+    kw = ({"bundle": build_models(config, tiny=tiny, seed=config.seed, device=device, random_aux_weights=True)}
+          if random_aux_weights else {})
+    pipe = FrescoPipeline(config, tiny=tiny, device=device, **kw)
     pipe.sync_phases = sync_phases
     print(f"[fresco_torch] model build: {time.time() - t0:.1f}s", flush=True)
     t0 = time.time()

@@ -153,3 +153,30 @@ def count_launch(wrapper, shape=None) -> None:
         wrapper.launches += 1
         if shape is not None:
             wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
+
+
+def wrappers() -> dict:
+    """The wrappers of the five hand-written kernels by name, each with its
+    ``launches`` count; ``bmm`` is launched on the main path as the
+    sign-gram pair's apply."""
+    from fresco_torch.attention.flash import flash_attention
+    from fresco_torch.ops.gemm import bmm
+    from fresco_torch.ops.gram_kernel import sign_gram_apply
+    from fresco_torch.propagate.gather import gather_rows
+    from fresco_torch.propagate.patch_eval import patch_eval
+
+    return {"flash_attn_fwd": flash_attention, "sign_gram": sign_gram_apply, "bmm": bmm,
+            "row_gather": gather_rows, "patch_eval": patch_eval}
+
+
+def launches() -> dict[str, int]:
+    """Each kernel's launch count so far, by the names of ``wrappers``."""
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    ws = wrappers()
+    with _count_lock:
+        for w in ws.values():
+            w.launches = 0

@@ -63,7 +63,6 @@ class ModelBundle:
     vae: AutoencoderKL
     controlnet: ControlNet
     text_encoder: CLIPTextEncoder
-    scheduler: DDPMScheduler
     tokenizer: Any
     detector: Callable[[np.ndarray], np.ndarray]
     device: torch.device
@@ -195,10 +194,8 @@ def build_models(config: FrescoConfig, *, tiny: bool = False, seed: int = 0,
     tokenizer = _make_tokenizer(config, ccfg, text_loaded="text" in load_seconds)
     detector = _build_detector(config, tiny, device, gen, random_aux_weights, load_seconds)
     saliency_fn = _build_saliency(config, device, gen, random_aux_weights, load_seconds)
-    return ModelBundle(unet, vae, controlnet, text,
-                       DDPMScheduler(num_inference_steps=config.num_inference_steps),
-                       tokenizer, detector, device, gmflow=gmflow, saliency_fn=saliency_fn,
-                       load_seconds=load_seconds)
+    return ModelBundle(unet, vae, controlnet, text, tokenizer, detector, device, gmflow=gmflow,
+                       saliency_fn=saliency_fn, load_seconds=load_seconds)
 
 
 def _make_tokenizer(config: FrescoConfig, ccfg: CLIPTextConfig, text_loaded: bool):
@@ -373,6 +370,13 @@ def _build_saliency(config: FrescoConfig, device, gen, random_aux_weights: bool,
     return make_saliency_fn(eg)
 
 
+def _check_mesh(config: FrescoConfig) -> None:
+    if int(np.prod(config.mesh_shape)) > 1:
+        raise NotImplementedError(
+            f"mesh_shape {tuple(config.mesh_shape)}: running over a device mesh needs the parallel/ "
+            "modules, which fresco_torch does not port yet; use mesh_shape (1, 1)")
+
+
 class FrescoPipeline:
     """run_fresco-equivalent orchestration."""
 
@@ -385,18 +389,37 @@ class FrescoPipeline:
         """``bundle``: the models (``build_models``; pass one built with
         ``random_aux_weights=True`` for random HED and EGNet weights), else
         a random-weight stack is built."""
-        if int(np.prod(config.mesh_shape)) > 1:
-            raise NotImplementedError(
-                f"mesh_shape {tuple(config.mesh_shape)}: running over a device mesh needs the parallel/ "
-                "modules, which fresco_torch does not port yet; use mesh_shape (1, 1)")
-        self.config = config
+        _check_mesh(config)
         self.bundle = bundle or build_models(config, tiny=tiny, seed=config.seed, device=device)
-        b = self.bundle
-        self.device = b.device
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
-        self.sampler = FrescoSampler(b.unet, b.vae, b.controlnet, b.scheduler)
-        self._base_sampler_cfg = self.make_sampler_cfg(config)
+        self.device = self.bundle.device
         self.phases = PhaseTimes()
+        self.set_config(config)
+
+    def set_config(self, config: FrescoConfig) -> None:
+        """Adopt ``config`` without rebuilding the models
+        (``fresco_tpu/pipeline/runner.py:370-381``; the WebUI's
+        ``GlobalState`` calls it where no rebuild is due).  Everything read
+        per batch follows it: the sampler settings (steps, warmup, guidance
+        and ControlNet scales, attention and optimization toggles), the
+        prompts, the keyframe selection and batches, the file paths and the
+        seed of the pipeline's generator.  What was built stays as built,
+        in both packages: the models (``sd_path``, ``lora_*``,
+        ``controlnet_type``, ``use_freeu`` and the FreeU factors,
+        ``use_saliency``, ``dtype``, ``aux_dtype``), the canny detector's
+        thresholds and the random weights drawn from the build's seed.
+
+        The step count also follows: the sampler's scheduler is made here,
+        and only here, at ``num_inference_steps``.  The JAX package keeps the
+        scheduler of its build, so a changed step count makes its denoise
+        scan raise (gates and per-step scales of different lengths); the port
+        departs from it there on purpose.  ``mesh_shape`` is read at
+        construction only, as in the JAX package."""
+        self.config = config
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        b = self.bundle
+        self.sampler = FrescoSampler(b.unet, b.vae, b.controlnet,
+                                     DDPMScheduler(num_inference_steps=config.num_inference_steps))
+        self._base_sampler_cfg = self.make_sampler_cfg(config)
 
     @staticmethod
     def make_sampler_cfg(config: FrescoConfig) -> SamplerConfig:
@@ -442,7 +465,7 @@ class FrescoPipeline:
     def _intraframe(self, frames_unit, prompt_embeds, noise, enc_noise):
         corr_dtype = torch.bfloat16 if self.config.gram_dtype == "bfloat16" else torch.float32
         b = self.bundle
-        return prepare.intraframe_params(b.unet, b.vae, b.scheduler, frames_unit, prompt_embeds,
+        return prepare.intraframe_params(b.unet, b.vae, self.sampler.scheduler, frames_unit, prompt_embeds,
                                          noise=noise, enc_noise=enc_noise, corr_dtype=corr_dtype)
 
     def _translate_batch(self, imgs, prompts, n_prompts, record, propagation, noise=None):
@@ -613,19 +636,26 @@ class FrescoPipeline:
         each batch's as soon as it is decoded (fresco_tpu/pipeline/runner.py
         writes them the same way), so a late failure keeps the batches
         before it.  ``reuse``: when every keyframe PNG exists already, skip the
-        translation.  Returns the key indices."""
+        translation.  The host work around the batches is timed as the phases
+        read_video, select_keyframes, write_video_frames and write_keyframes.
+        Returns the key indices."""
         from fresco_torch.propagate.video_blend import _codec
 
         Image = _codec()
         cfg = self.config
         for sub in ("keys", "video"):
             os.makedirs(os.path.join(cfg.save_path, sub), exist_ok=True)
-        raw = read_video_rgb(cfg.file_path, int(cfg.frame_count) if cfg.frame_count else int(1e10))
-        keys = select_keyframes_from_frames(raw, cfg.mininterv, cfg.maxinterv)
-        frames = [resize_image(f, cfg.resolution) for f in raw]
-        del raw
-        for i, f in enumerate(frames):
-            Image.fromarray(f).save(os.path.join(cfg.save_path, "video", "%04d.png" % i))
+        with self._phase("read_video"):
+            raw = read_video_rgb(cfg.file_path, int(cfg.frame_count) if cfg.frame_count else int(1e10))
+        if not raw:
+            raise RuntimeError(f"no frame could be decoded from {cfg.file_path!r}")
+        with self._phase("select_keyframes"):
+            keys = select_keyframes_from_frames(raw, cfg.mininterv, cfg.maxinterv)
+        with self._phase("write_video_frames"):
+            frames = [resize_image(f, cfg.resolution) for f in raw]
+            del raw
+            for i, f in enumerate(frames):
+                Image.fromarray(f).save(os.path.join(cfg.save_path, "video", "%04d.png" % i))
         key_path = lambda k: os.path.join(cfg.save_path, "keys", "%04d.png" % k)  # noqa: E731
         if reuse and all(os.path.exists(key_path(k)) for k in keys):
             if verbose:
@@ -633,8 +663,9 @@ class FrescoPipeline:
             return keys
 
         def save(batch: dict[int, np.ndarray]) -> None:
-            for k, img in batch.items():
-                Image.fromarray(img).save(key_path(k))
+            with self._phase("write_keyframes"):
+                for k, img in batch.items():
+                    Image.fromarray(img).save(key_path(k))
 
         self.translate_keyframes(frames, keys, verbose=verbose, on_batch=save)
         return keys

@@ -97,9 +97,8 @@ def test_batch_with_background_smoothing(weights):
 
     tm = torch_tiny_models(params)
     tbundle = trunner.ModelBundle(
-        tm["unet"], tm["vae"], tm["controlnet"], tm["text"],
-        trunner.DDPMScheduler(num_inference_steps=tcfg.num_inference_steps), HashTokenizer(1000),
-        _edges, torch.device("cpu"), flow_fn=lambda a, b: torch.from_numpy(flows),
+        tm["unet"], tm["vae"], tm["controlnet"], tm["text"], HashTokenizer(1000), _edges, torch.device("cpu"),
+        flow_fn=lambda a, b: torch.from_numpy(flows),
         saliency_fn=lambda _: torch.from_numpy(sal))
     tpipe = trunner.FrescoPipeline(tcfg, tbundle)
     tpipe._base_sampler_cfg = dataclasses.replace(tpipe._base_sampler_cfg, bg_vae_chunk=2)

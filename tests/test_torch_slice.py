@@ -114,9 +114,8 @@ def _run_both(weights, jcfg, tcfg):
 
     tm = torch_tiny_models(params)
     tbundle = trunner.ModelBundle(
-        tm["unet"], tm["vae"], tm["controlnet"], tm["text"],
-        trunner.DDPMScheduler(num_inference_steps=tcfg.num_inference_steps), HashTokenizer(1000),
-        _edges, torch.device("cpu"), flow_fn=lambda a, b: torch.from_numpy(flows))
+        tm["unet"], tm["vae"], tm["controlnet"], tm["text"], HashTokenizer(1000), _edges, torch.device("cpu"),
+        flow_fn=lambda a, b: torch.from_numpy(flows))
     tpipe = trunner.FrescoPipeline(tcfg, tbundle)
     noise = _jax_noise(tcfg.seed, tcfg.num_inference_steps, tcfg.num_warmup_steps)
     tlat, trec = tpipe._translate_batch(imgs, prompts, negs, None, False, noise)
@@ -198,9 +197,8 @@ def test_two_batches_with_record(weights):
     tgm = GMFlow(GMFlowConfig.tiny())
     from_jax_params(gparams, tgm)
     tbundle = trunner.ModelBundle(
-        tm["unet"], tm["vae"], tm["controlnet"], tm["text"],
-        trunner.DDPMScheduler(num_inference_steps=tcfg.num_inference_steps), HashTokenizer(1000),
-        _edges, torch.device("cpu"), gmflow=tgm.eval())
+        tm["unet"], tm["vae"], tm["controlnet"], tm["text"], HashTokenizer(1000), _edges, torch.device("cpu"),
+        gmflow=tgm.eval())
     tpipe = trunner.FrescoPipeline(tcfg, tbundle)
     noise = [_jax_noise(tcfg.seed, tcfg.num_inference_steps, tcfg.num_warmup_steps, f=5) for _ in subs]
     out = tpipe.translate_keyframes(frames, keys, noise=noise)
