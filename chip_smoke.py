@@ -2,8 +2,8 @@
 then one full-width keyframe batch and one full-width propagation interval
 through the pipeline, the loaded-weights batch, the propagation entry
 points, the control detectors with config_boxer's depth-controlled
-batch, the training path (the UNet step and GMFlow's), and the WebUI's
-handlers on config_music.
+batch, the training path (the UNet step and GMFlow's), the WebUI's
+handlers on config_music, and the device mesh.
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit:
@@ -159,6 +159,19 @@ Phases (each prints its own lines; any failure exits non-zero):
                blend.mp4 (48 frames read back); a controlnet_type change to
                depth, which must rebuild.  Each action's wall, peak memory and
                launches; all five kernels must launch over the phase.
+ 17. mesh    : the machine's torch.distributed (backends, NCCL's version,
+               whether gloo gathers, reduces and broadcasts CUDA tensors
+               itself, a K-sized gather as handed and as staged by hand); a
+               process group of one over NCCL, bit-equal to no group; then
+               config_music's 8-keyframe 512x512 batch at 4 steps, feature
+               optimization off and on, in worlds of ranks spawned on this
+               card over gloo at meshes (2, 1), (1, 2), (2, 2), each rank
+               against the single process and against the witness (one
+               process doing a rank's arithmetic, no collective); flash,
+               sign-gram and bmm must launch in every rank; the (2, 1)
+               UNet training step against the single step;
+               dryrun_multichip(4) on the card.  Walls, peak memory and
+               launches per rank, reported and not judged.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
@@ -2638,6 +2651,306 @@ def phase_webui(seed: int, dev, tiny: bool = False, n: int = WEBUI_FRAMES, res: 
         fail(f"webui did not launch every main-path kernel: {launches}")
 
 
+# ---------------------------------------------------------------- mesh
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))   # (data, model): ranks spawned on cuda:0, over gloo
+MESH_FRAMES = 8
+# config_music's settings with the denoise loop cut from 20 steps (17 after
+# warmup) to 4 (2 after warmup): the comparison needs every mechanism, not
+# every step, and a step over gloo through host memory costs ~10x one alone;
+# feature optimization (20 Adam iterations) in both, background smoothing in the last
+MESH_STEPS = dict(num_inference_steps=4, num_warmup_steps=2, end_opt_step=4, bg_smoothing_steps=(3,))
+# Sharded against single on the card, bf16 (H100 80GB HBM3, 700 W).  The
+# witness (smoke.rank_sized_layers: one process doing a rank's arithmetic,
+# no collective) reads what kernels run at a rank's shapes, row places and
+# TP partial sums alone move the single run: latents 5.10e-2 (2, 1),
+# 5.30e-2 (1, 2), 5.96e-2 (2, 2) relative, two random-weight denoise steps
+# at guidance 7.5 amplifying one rounding to that; decoded PSNR 24.60,
+# 24.33, 23.66 dB.  Every rank's latents equal its witness's bit for bit
+# with feature optimization off (read 0.0 at each shape in three calls), so
+# MESH_WITNESS_REL holds the sharded run to the witness's arithmetic: one
+# differing rounding would read ~5e-2.  With it on, the feature
+# optimization's sums over data ranks round otherwise: decoded PSNR against
+# the witness 27.21 (2, 1), inf (1, 2), 28.95 dB (2, 2).  The vs-single
+# bounds leave about 2x the witness's own distance (the runs are
+# deterministic); the training step's loss read 2.04e-4, gradients 2.05e-2.
+MESH_WITNESS_REL = 1e-3           # optimization off: latents vs the witness, relative Frobenius
+MESH_PSNR_WITNESS_FLOOR = 24.0    # optimization on: decoded frames vs the witness, dB
+MESH_LATENT_REL = 0.12            # optimization off: latents vs single, relative Frobenius
+MESH_PSNR_FLOOR = 20.0            # optimization on: decoded frames vs single, dB
+MESH_TRAIN_LOSS_REL = 1e-3
+MESH_TRAIN_GRAD_REL = 5e-2   # max |d| / max |g|, as phase 15's kernel-vs-naive step
+
+
+def known_flow_fn(frames, flows, dev):
+    """A flow function over any subset of ``frames``: each frame is found
+    among them by its top-left 8x8 corner and gets its known flows
+    (``make_inputs``), so a rank's own pairs get theirs."""
+    n = len(frames)
+    keys = torch.stack([torch.from_numpy(f[:8, :8].astype(np.float32)).flatten() for f in frames]).to(dev)
+    fl = torch.from_numpy(flows).to(dev)
+
+    def flow_fn(a, b):
+        idx = torch.cdist(a[:, :8, :8].reshape(a.shape[0], -1).float(), keys).argmin(1)
+        return torch.cat([fl[idx], fl[n + idx]])
+
+    return flow_fn
+
+
+def _mesh_batches(seed: int, dev, mesh_shape, tiny: bool = False, res: int = 512, witness=None) -> dict:
+    """config_music's batch of MESH_FRAMES keyframes (MESH_STEPS) on this
+    process's mesh, with feature optimization off and then on: the latents
+    of the first, the decoded frames of the second, the wall, peak memory
+    and kernel launches of each.  ``witness``: the single process doing a
+    rank's arithmetic of that (data, model) mesh (``smoke.rank_sized_layers``)."""
+    import contextlib
+
+    from fresco_torch import kernels
+    from fresco_torch.parallel.smoke import rank_sized_layers
+    from fresco_torch.pipeline.runner import FrescoPipeline, build_models
+
+    cfg = music_config(mesh_shape=tuple(mesh_shape), resolution=res, use_fresco_opt=False, **MESH_STEPS)
+    t0 = time.perf_counter()
+    bundle = build_models(cfg, tiny=tiny, seed=seed, device=dev, random_aux_weights=True)
+    frames, flows, detector = make_inputs(seed, MESH_FRAMES, res)
+    bundle.flow_fn = known_flow_fn(frames, flows, dev)
+    bundle.detector = detector
+    pipe = FrescoPipeline(cfg, bundle)
+    out = {"build_s": time.perf_counter() - t0}
+    prompts, negs = prompts_for(cfg, MESH_FRAMES)
+    with rank_sized_layers(bundle, *witness) if witness else contextlib.nullcontext():
+        for opt in (False, True):
+            pipe.set_config(cfg.replace(use_fresco_opt=opt))
+            kernels.reset_launches()
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            latents, _ = pipe._translate_batch(frames, prompts, negs, None, False)
+            images = pipe.decode(latents)
+            _sync(dev)
+            key = "opt" if opt else "plain"
+            out[key] = {"latents": latents.float().cpu(), "images": images, "wall_s": time.perf_counter() - t0,
+                        "peak_gib": _peak_gib(dev), "launches": kernels.launches()}
+    return out
+
+
+def _mesh_train(seed: int, dev, mesh=None, cfg=None, res: int = 512) -> dict:
+    """One UNet training step at full width (phase 15's UNet, batch 2, bf16
+    compute), SGD at lr 0 so the gradients are read as they are: the loss
+    and the gradients of TRAIN_GRAD_PARAMS, the whole batch's on every rank."""
+    from fresco_torch.diffusion.scheduler import DDPMScheduler
+    from fresco_torch.models.unet import UNetConfig
+    from fresco_torch.parallel import TrainState, train_step
+
+    cfg = cfg or UNetConfig()
+    gen = torch.Generator(device=dev).manual_seed(seed + 171)
+    lat = torch.randn(2, res // 8, res // 8, 4, generator=gen, device=dev)
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, generator=gen, device=dev)
+    unet = _train_unet(seed, dev, cfg)
+    st = TrainState(unet, torch.optim.SGD(unet.parameters(), lr=0.0))
+    t0 = time.perf_counter()
+    _, loss = train_step(st, DDPMScheduler(), lat, ctx, seed=seed, mesh=mesh)
+    loss = float(loss)
+    _sync(dev)
+    grads = {n: p.grad.detach().float().cpu() for n, p in unet.named_parameters() if n in TRAIN_GRAD_PARAMS}
+    return {"loss": loss, "grads": grads, "step_s": time.perf_counter() - t0, "peak_gib": _peak_gib(dev)}
+
+
+def _mesh_rank(rank: int, dev, shape, seed: int, tiny: bool, res: int, card: str, train_cfg, train_res):
+    """One spawned rank of phase 17."""
+    global CARD
+    CARD = card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from fresco_torch import kernels
+    from fresco_torch.parallel.sharding import make_mesh
+
+    if dev.type == "cuda":
+        kernels.load()
+    out = _mesh_batches(seed, dev, shape, tiny, res)
+    if tuple(shape) == (2, 1):
+        out["train"] = _mesh_train(seed, dev, make_mesh(*shape), train_cfg, train_res)
+    return out
+
+
+def _lat_rel(a: dict, b: dict) -> float:
+    """The relative Frobenius distance of two runs' latents (optimization off)."""
+    return float((a["plain"]["latents"] - b["plain"]["latents"]).norm() / b["plain"]["latents"].norm())
+
+
+def _psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
+
+
+def mesh_probe(dev) -> dict:
+    """What this machine's torch.distributed offers: the backends, NCCL's
+    version, and whether gloo all-gathers, all-reduces and broadcasts CUDA
+    tensors itself, with the right values (two spawned ranks on the card);
+    then a gather of a 2x4x4096x320 bf16 tensor (cross-frame attention's K
+    at 512 px) handed to gloo as it lies against one staged through host
+    memory by hand, timed in turns."""
+    import torch.distributed as dist
+
+    from fresco_torch.parallel.distributed import launch
+
+    info = {"nccl": dist.is_nccl_available(), "gloo": dist.is_gloo_available(),
+            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())) if dev.type == "cuda" else None}
+    info["gloo_cuda"] = launch(_probe_rank, 2, device=dev.type, timeout_s=120)[0]
+    print(f"mesh probe: {info} ({CARD})")
+    return info
+
+
+def _probe_rank(rank: int, dev) -> dict:
+    import torch.distributed as dist
+
+    from fresco_torch.core import comm
+
+    out = {"backend": dist.get_backend()}
+    x = torch.full((4,), float(rank + 1), device=dev)
+
+    def gather():
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts), torch.tensor([1.0] * 4 + [2.0] * 4)
+
+    def reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y, torch.full((4,), 3.0)
+
+    def bcast():
+        y = x.clone()
+        dist.broadcast(y, src=1)
+        return y, torch.full((4,), 2.0)
+
+    for name, op in (("all_gather", gather), ("all_reduce", reduce), ("broadcast", bcast)):
+        try:
+            got, want = op()
+            out[name] = "ok" if got.device == dev and torch.equal(got.cpu(), want) else f"wrong: {got.tolist()}"
+        except Exception as e:  # the probe reports what the backend refuses
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    if dev.type != "cuda":
+        return out
+    group = dist.group.WORLD
+    k = torch.randn(2, 4, 4096, 320, device=dev).to(torch.bfloat16)
+
+    def staged():
+        return comm.all_gather_cat(k.cpu(), group, 2).to(dev)
+
+    def native():
+        return comm.all_gather_cat(k, group, 2)
+
+    if not torch.equal(staged(), native()):
+        out["gather_ms"] = "native and staged gathers differ"
+        return out
+    ms = {"native": [], "staged": []}
+    for _ in range(5):
+        for name, fn in (("native", native), ("staged", staged)):
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    out["gather_ms"] = {n: float(np.median(v)) for n, v in ms.items()}
+    return out
+
+
+def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=None, train_res: int = 512,
+               shapes=MESH_SHAPES, dryrun: bool = True) -> dict:
+    """Phase 17: the device mesh (parallel/), every rank on this card."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fresco_torch.parallel.distributed import initialize, launch
+    from fresco_torch.parallel.dryrun import dryrun_multichip
+
+    probe = mesh_probe(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    single = _mesh_batches(seed, dev, (1, 1), tiny, res)
+    for key in ("plain", "opt"):
+        r = single[key]
+        print(f"mesh: single process, feature optimization {'on' if key == 'opt' else 'off'}: "
+              f"{MESH_FRAMES} x {res} px, wall {r['wall_s']:.2f} s, peak {r['peak_gib']:.2f} GiB, "
+              f"launches {r['launches']} ({CARD})")
+
+    # a process group of one over NCCL: the (1, 1) mesh is the plain path, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, device_type=dev.type)
+        try:
+            world1 = _mesh_batches(seed, dev, (1, 1), tiny, res)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    same = all(torch.equal(world1[k]["latents"], single[k]["latents"]) for k in ("plain", "opt"))
+    print(f"mesh: process group of 1 ({backend}), mesh (1, 1): latents bit-equal to the plain path {same}")
+    if not same:
+        fail("mesh: the (1, 1) mesh in a process group of one differs from the plain path")
+
+    train_single = _mesh_train(seed, dev, None, train_cfg, train_res)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    readings = {"probe": probe, "single": {k: {x: single[k][x] for x in ("wall_s", "peak_gib", "launches")}
+                                           for k in ("plain", "opt")}}
+    for shape in shapes:
+        # the witness: this process doing a rank's arithmetic of the mesh
+        # (its kernel shapes, TP's partial sums) with no collective
+        witness = _mesh_batches(seed, dev, (1, 1), tiny, res, witness=shape)
+        w_lat, w_psnr = _lat_rel(witness, single), _psnr_u8(witness["opt"]["images"], single["opt"]["images"])
+        print(f"mesh {shape}: witness (one process, a rank's arithmetic, no collective) vs single: off: latents "
+              f"rel fro {w_lat:.3e}; on: decoded PSNR {w_psnr:.2f} dB ({CARD})")
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        ranks = launch(_mesh_rank, world, shape, seed, tiny, res, CARD, train_cfg, train_res,
+                       device=dev.type, timeout_s=900)
+        wall = time.perf_counter() - t0
+        rows = []
+        for r, out in enumerate(ranks):
+            lat_rel, psnr = _lat_rel(out, single), _psnr_u8(out["opt"]["images"], single["opt"]["images"])
+            lat_w, psnr_w = _lat_rel(out, witness), _psnr_u8(out["opt"]["images"], witness["opt"]["images"])
+            rows.append({"rank": r, "latent_rel": lat_rel, "psnr_db": psnr, "latent_rel_witness": lat_w,
+                         "psnr_db_witness": psnr_w,
+                         **{f"{k}_{x}": out[k][x] for k in ("plain", "opt") for x in ("wall_s", "peak_gib", "launches")}})
+            print(f"mesh {shape} rank {r}: off: latents rel fro vs witness {lat_w:.3e} (limit {MESH_WITNESS_REL}), "
+                  f"vs single {lat_rel:.3e} (limit {MESH_LATENT_REL}), wall {out['plain']['wall_s']:.2f} s, peak "
+                  f"{out['plain']['peak_gib']:.2f} GiB, launches {out['plain']['launches']}; on: decoded PSNR vs "
+                  f"witness {psnr_w:.2f} dB (floor {MESH_PSNR_WITNESS_FLOOR}), vs single {psnr:.2f} dB (floor "
+                  f"{MESH_PSNR_FLOOR}), wall {out['opt']['wall_s']:.2f} s, peak {out['opt']['peak_gib']:.2f} GiB, "
+                  f"launches {out['opt']['launches']} ({CARD})")
+            if not (lat_w <= MESH_WITNESS_REL and psnr_w >= MESH_PSNR_WITNESS_FLOOR):
+                fail(f"mesh {shape} rank {r}: sharded differs from its witness")
+            if not (lat_rel <= MESH_LATENT_REL and psnr >= MESH_PSNR_FLOOR):
+                fail(f"mesh {shape} rank {r}: sharded differs from single")
+            if dev.type == "cuda":
+                for k in ("plain", "opt"):
+                    if min(out[k]["launches"][n] for n in ("flash_attn_fwd", "sign_gram", "bmm")
+                           if k == "opt" or n == "flash_attn_fwd") <= 0:
+                        fail(f"mesh {shape} rank {r}: a main-path kernel did not launch: {out[k]['launches']}")
+            if "train" in out:
+                tr = out["train"]
+                loss_rel = abs(tr["loss"] - train_single["loss"]) / abs(train_single["loss"])
+                grad_rel = {n: _rel(tr["grads"][n], train_single["grads"][n]) for n in TRAIN_GRAD_PARAMS}
+                rows[-1].update(train_loss_rel=loss_rel, train_grad_rel=max(grad_rel.values()),
+                                train_step_s=tr["step_s"])
+                print(f"mesh {shape} rank {r}: UNet training step (batch 2 over data, {train_res} px) vs single: "
+                      f"loss {tr['loss']:.6f} vs {train_single['loss']:.6f}, rel {loss_rel:.3e} (limit "
+                      f"{MESH_TRAIN_LOSS_REL}); gradients max|d|/max|g| "
+                      + ", ".join(f"{n} {v:.3e}" for n, v in grad_rel.items())
+                      + f" (limit {MESH_TRAIN_GRAD_REL}); step {tr['step_s']:.2f} s, peak {tr['peak_gib']:.2f} GiB "
+                        f"(single {train_single['step_s']:.2f} s) ({CARD})")
+                if loss_rel > MESH_TRAIN_LOSS_REL or max(grad_rel.values()) > MESH_TRAIN_GRAD_REL:
+                    fail(f"mesh {shape}: the sharded training step differs from the single one")
+        print(f"mesh {shape}: {world} ranks on one card over gloo, call wall {wall:.2f} s "
+              "(walls reported, not judged: the ranks share one card)")
+        readings[str(shape)] = {"witness": {"latent_rel": w_lat, "psnr_db": w_psnr}, "ranks": rows}
+    if dryrun:
+        readings["dryrun"] = dryrun_multichip(4, device=dev.type)
+        print(f"mesh: dryrun_multichip(4, device={dev.type!r}) passed ({CARD})")
+    return readings
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2683,6 +2996,7 @@ def main() -> None:
     phase_detectors(args.seed, dev, gram_rows)
     phase_train(args.seed, dev)
     phase_webui(args.seed, dev)
+    phase_mesh(args.seed, dev)
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

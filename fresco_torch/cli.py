@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 
@@ -34,9 +35,17 @@ def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_s
     consistency report.  Returns the report (also in metrics.json), or
     None when propagation was skipped.  ``random_aux_weights``: the control
     detector and EGNet get seeded random weights where their checkpoints
-    are missing (``build_models``), so that they run without them."""
+    are missing (``build_models``), so that they run without them.
+
+    A ``mesh_shape`` of more than one rank joins the process group that
+    torchrun's (or Slurm's) variables name (``parallel.distributed``): every
+    rank translates the keyframes, and rank 0 alone writes them, propagates
+    and reports (the other ranks return None)."""
+    from fresco_torch.parallel import distributed
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
 
+    if math.prod(config.mesh_shape) > 1:
+        distributed.initialize()  # without a rendezvous the pipeline raises, naming torchrun (F23)
     t0 = time.time()
     kw = ({"bundle": build_models(config, tiny=tiny, seed=config.seed, device=device, random_aux_weights=True)}
           if random_aux_weights else {})
@@ -46,7 +55,7 @@ def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_s
     t0 = time.time()
     keys = pipe.translate_keyframe_files(reuse=reuse_synthesis)
     print(f"[fresco_torch] keyframe translation: {time.time() - t0:.1f}s", flush=True)
-    if keyframes_only or not config.run_ebsynth:
+    if keyframes_only or not config.run_ebsynth or not distributed.is_main_process():
         return None
 
     from fresco_torch.propagate.video_blend import blend_video, get_fps

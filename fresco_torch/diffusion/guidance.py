@@ -16,6 +16,17 @@ decoder feature minimizes
     chunked plain path (``fresco_tpu`` guidance.py:385-412);
 
 then AdaIN-renormalizes to the input's statistics.
+
+Float64 features (``FrescoConfig(dtype="float64")``, the sharding-
+validation mode) are optimized in float64 with float64 grams, as in
+``fresco_tpu`` guidance.py:499-503; any other dtype in float32.
+
+Over a mesh (frames over ``data``) ``sample`` and ``correlation`` hold this
+rank's frames and the flows the whole batch's: the temporal loss gathers
+each rank's first frame (``comm.gather_frames``), the one frame its
+previous rank's last frame is compared with, and holds only this rank's
+frames' terms, over the whole batch's count, so the gathered gradient is
+the whole loss's; the gram gradient divides by the whole batch.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from fresco_torch.core import comm
 from fresco_torch.ops import gram_kernel
 from fresco_torch.ops.adain import adain
 from fresco_torch.ops.blend import prepare_flow_for_scale
@@ -49,8 +61,9 @@ class GuidanceConfig:
 
 
 def warp_taps(flow: torch.Tensor):
-    """flow [F,h,w,2] -> (src int64 [F,hw,4] source pixels, wt f32 [F,hw,4]
-    bilinear weights, zero out of bounds)."""
+    """flow [F,h,w,2] -> (src int64 [F,hw,4] source pixels, wt [F,hw,4]
+    bilinear weights in at least float32 (float64 flows keep float64), zero
+    out of bounds)."""
     f, h, w, _ = flow.shape
     hw = h * w
     grid = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
@@ -66,7 +79,7 @@ def warp_taps(flow: torch.Tensor):
         inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
         srcs.append(torch.clamp(yi, 0, h - 1).to(torch.int64) * w
                     + torch.clamp(xi, 0, w - 1).to(torch.int64))
-        wts.append((wt * inb.to(flow.dtype)).to(torch.float32))
+        wts.append((wt * inb.to(flow.dtype)).to(torch.promote_types(flow.dtype, torch.float32)))
     return torch.stack(srcs, -1), torch.stack(wts, -1)
 
 
@@ -137,14 +150,22 @@ def apply_sparse_warp(x: torch.Tensor, warp: SparseWarp) -> torch.Tensor:
     return _ApplySparseWarp.apply(x, warp)
 
 
-def temporal_loss(cs, fwd_warp, bwd_warp, fwd_occ, bwd_occ, chunk: int):
+def temporal_loss(cs, fwd_warp, bwd_warp, fwd_occ, bwd_occ, chunk: int, mesh=None):
     """Bidirectional warp-consistency L1 (diffusion_hacked.py:461-466).
     cs [chunk*F,h,w,C]; warps dense [F,hw,hw] or ``SparseWarp``; occs
-    [F,h,w,1]."""
+    [F,h,w,1].  With a ``mesh``, cs holds this rank's frames and the warps
+    and occlusions those same frames; the loss is this rank's share of the
+    whole batch's."""
     b, h, w, c = cs.shape
     f = b // chunk
     c1 = cs.reshape(chunk, f, h * w, c)
-    c2 = torch.roll(c1, -1, dims=1)
+    if mesh is None or mesh.data == 1:
+        c2 = torch.roll(c1, -1, dims=1)
+        n_total = cs.numel()
+    else:  # frame i+1 of the whole batch: the next rank's first frame follows the last
+        firsts = comm.gather_frames(c1[:, 0], mesh, chunk).reshape(chunk, mesh.data, h * w, c)
+        c2 = torch.cat([c1[:, 1:], firsts[:, (mesh.data_rank + 1) % mesh.data, None]], dim=1)
+        n_total = cs.numel() * mesh.data
 
     def warp(x, wop):
         if isinstance(wop, SparseWarp):  # fold (chunk, c) -> d
@@ -157,7 +178,7 @@ def temporal_loss(cs, fwd_warp, bwd_warp, fwd_occ, bwd_occ, chunk: int):
     c1f, c2f = c1.reshape(cs.shape), c2.reshape(cs.shape)
     bo, fo = bwd_occ.repeat(chunk, 1, 1, 1), fwd_occ.repeat(chunk, 1, 1, 1)
     l = torch.abs((c2f - warped1) * (1.0 - bo)) + torch.abs((c1f - warped2) * (1.0 - fo))
-    return l.mean() * 2.0
+    return (l.mean() if n_total == l.numel() else l.sum() / n_total) * 2.0
 
 
 def _normalize_rows(cs: torch.Tensor) -> torch.Tensor:
@@ -166,47 +187,62 @@ def _normalize_rows(cs: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt(torch.sum(v * v, dim=2, keepdim=True))
 
 
-def _gram_l1_grad(v_hat, correlation, gram_dtype, chunk_rows: int, is_dense: bool):
-    """∂/∂v̂ of mean|v̂v̂ᵀ − C| = 2·S·v̂ / N, S = sign(G − C) symmetric.
+def _gram_l1_grad(v_hat, correlation, gram_dtype, chunk_rows: int, is_dense: bool, n_batch: int | None = None):
+    """∂/∂v̂ of mean|v̂v̂ᵀ − C| = 2·S·v̂ / N, S = sign(G − C) symmetric,
+    N = n_batch·hw² (``n_batch``: the whole batch's, default v̂'s own).
 
     Dense C goes through the sign-gram wrapper (the CUDA kernels on the
     card, the chunked plain version on the CPU); factored C [B,hw,C] is
     rebuilt one row chunk at a time."""
     b, hw, c = v_hat.shape
+    n = (n_batch or b) * hw * hw
     vg = v_hat.to(gram_dtype)
     if is_dense:
         sv = gram_kernel.sign_gram_apply(vg.contiguous(), correlation.to(gram_dtype).contiguous())
-        return 2.0 * sv / (b * hw * hw)
-    vf = vg.float()
-    vr = correlation.to(gram_dtype).float()
-    grad = torch.empty((b, hw, c), dtype=torch.float32, device=v_hat.device)
+        return 2.0 * sv / n
+    work = torch.promote_types(gram_dtype, torch.float32)
+    vf = vg.to(work)
+    vr = correlation.to(gram_dtype).to(work)
+    grad = torch.empty((b, hw, c), dtype=work, device=v_hat.device)
     for row0 in range(0, hw, chunk_rows):
         rows = slice(row0, row0 + chunk_rows)
         g = torch.matmul(vf[:, rows], vf.transpose(1, 2))
         s = torch.sign(g - torch.matmul(vr[:, rows], vr.transpose(1, 2)))
         grad[:, rows] = 2.0 * torch.matmul(s, vf)
-    return grad / (b * hw * hw)
+    return grad / n
 
 
 def optimize_feature(sample, fwd_flow, bwd_flow, fwd_occ, bwd_occ, correlation,
-                     cfg: GuidanceConfig = GuidanceConfig(), corr_is_dense: bool | None = None):
+                     cfg: GuidanceConfig = GuidanceConfig(), corr_is_dense: bool | None = None,
+                     mesh=None):
     """Inner Adam loop on one decoder feature map.
 
-    sample [chunk*F,h,w,C] (any dtype; optimized in f32); flows [F,H,W,2]
-    at video resolution; correlation dense [chunk*F,hw,hw], factored
-    [chunk*F,hw,C] (``corr_is_dense=False``) or None.  Returns the
-    optimized feature AdaIN-matched to ``sample``, in sample's dtype."""
+    sample [chunk*F,h,w,C] (any dtype; optimized in f32, f64 stays f64);
+    flows [F,H,W,2] at video resolution; correlation dense [chunk*F,hw,hw],
+    factored [chunk*F,hw,C] (``corr_is_dense=False``) or None.  With a
+    ``mesh``, sample and correlation hold this rank's frames and the flows
+    the whole batch's.  Returns the optimized feature AdaIN-matched to
+    ``sample``, in sample's dtype."""
     do_temporal = cfg.optimize_temporal and fwd_flow is not None
     do_spatial = correlation is not None and cfg.intra_weight > 0
     if not do_temporal and not do_spatial:
         return sample
     h, w = sample.shape[1:3]
-    gram_dtype = torch.bfloat16 if cfg.gram_dtype == "bfloat16" else torch.float32
+    if sample.dtype == torch.float64:  # the sharding-validation mode (fresco_tpu guidance.py:499-503)
+        work_dtype = gram_dtype = torch.float64
+    else:
+        work_dtype = torch.float32
+        gram_dtype = torch.bfloat16 if cfg.gram_dtype == "bfloat16" else torch.float32
+    d = 1 if mesh is None else mesh.data
+    n_batch = sample.shape[0] * d
 
     with torch.no_grad():
         if do_temporal:
-            bwd_flow_s, bwd_occ_s = prepare_flow_for_scale(bwd_flow, bwd_occ, (h, w), dilate_full_res=False)
-            fwd_flow_s, fwd_occ_s = prepare_flow_for_scale(fwd_flow, fwd_occ, (h, w), dilate_full_res=False)
+            loc = slice(None) if d == 1 else mesh.frame_slice(sample.shape[0] // cfg.chunk * d)
+            bwd_flow_s, bwd_occ_s = prepare_flow_for_scale(bwd_flow[loc], bwd_occ[loc], (h, w),
+                                                           dilate_full_res=False)
+            fwd_flow_s, fwd_occ_s = prepare_flow_for_scale(fwd_flow[loc], fwd_occ[loc], (h, w),
+                                                           dilate_full_res=False)
             if cfg.warp_mode == "sparse":
                 fwd_warp, bwd_warp = make_sparse_warp(fwd_flow_s), make_sparse_warp(bwd_flow_s)
             elif cfg.warp_mode == "dense":
@@ -219,12 +255,13 @@ def optimize_feature(sample, fwd_flow, bwd_flow, fwd_occ, bwd_occ, correlation,
         if do_spatial and not corr_is_dense:
             b_c, hw_c = correlation.shape[:2]
             itemsize = torch.empty((), dtype=gram_dtype).element_size()
-            if b_c * hw_c * hw_c * itemsize / 2**20 <= cfg.dense_corr_max_mb:
+            # the whole batch's size decides, so that every mesh takes the same path
+            if b_c * d * hw_c * hw_c * itemsize / 2**20 <= cfg.dense_corr_max_mb:
                 vr = correlation.to(gram_dtype)
                 correlation = torch.matmul(vr, vr.transpose(1, 2))
                 corr_is_dense = True
 
-    x0 = sample.to(torch.float32)
+    x0 = sample.to(work_dtype)
     cs = x0.clone()
     mu = torch.zeros_like(cs)
     nu = torch.zeros_like(cs)
@@ -232,13 +269,13 @@ def optimize_feature(sample, fwd_flow, bwd_flow, fwd_occ, bwd_occ, correlation,
     for it in range(1, cfg.iters + 1):
         with torch.enable_grad():
             x = cs.detach().requires_grad_(True)
-            total = torch.zeros((), device=x.device)
+            total = torch.zeros((), dtype=work_dtype, device=x.device)
             if do_temporal:
-                total = total + temporal_loss(x, fwd_warp, bwd_warp, fwd_occ_s, bwd_occ_s, cfg.chunk)
+                total = total + temporal_loss(x, fwd_warp, bwd_warp, fwd_occ_s, bwd_occ_s, cfg.chunk, mesh)
             if do_spatial:
                 v = _normalize_rows(x)
                 gv = _gram_l1_grad(v.detach(), correlation, gram_dtype,
-                                   min(1024, v.shape[1]), corr_is_dense)
+                                   min(1024, v.shape[1]), corr_is_dense, n_batch)
                 total = total + cfg.intra_weight * torch.sum(v * gv)
             (g,) = torch.autograd.grad(total, x)
         with torch.no_grad():

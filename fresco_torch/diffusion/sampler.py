@@ -26,6 +26,15 @@ background mask): the optimized decoder features go through
 ``bg_smoothing_steps`` the predicted x0 is VAE-decoded, fused in image
 space (chunk 1) and re-encoded, in frame groups of gcd(F, bg_vae_chunk)
 (pipe_FRESCO.py:222-228).
+
+Over a mesh (``FrescoSampler.mesh``, frames over ``data``) every rank
+holds the whole latents, draws the whole batch's noise and runs the DDPM
+step, record and restore on them alike; it runs the VAE, the ControlNet
+and the UNet on its own frames (the CFG pair of each) and gathers their
+outputs, and the FRESCO attention, the feature optimization and the
+smoothing gather what couples frames.  A batch whose frames ``data`` does
+not divide is replicated over ``data`` (``Mesh.for_frames``).  The
+float64 mode (``frames`` in float64) keeps the latents in float64.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from fresco_torch.attention.fresco_attention import FrescoAttnParams
+from fresco_torch.core.comm import Mesh, gather_frames, local_frames
 from fresco_torch.diffusion.guidance import GuidanceConfig, optimize_feature
 from fresco_torch.diffusion.scheduler import DDPMScheduler
 from fresco_torch.models.controlnet import embed_cond
@@ -76,8 +86,9 @@ class SamplerConfig:
 
 
 class FrescoSampler:
-    def __init__(self, unet, vae, controlnet, scheduler: DDPMScheduler):
+    def __init__(self, unet, vae, controlnet, scheduler: DDPMScheduler, mesh: Mesh | None = None):
         self.unet, self.vae, self.controlnet, self.scheduler = unet, vae, controlnet, scheduler
+        self.mesh = mesh or Mesh()
 
     def step_gates(self, cfg: SamplerConfig) -> list[dict]:
         """Per-step gates (pipe_FRESCO.py:171-174,222-228): one dict per
@@ -106,18 +117,22 @@ class FrescoSampler:
             step_noise=torch.randn((n_steps, *shape), generator=gen, device=dev),
         )
 
-    def _smooth_x0(self, x0, fresco: FrescoState, cfg: SamplerConfig, noise, lat_t):
+    def _smooth_x0(self, x0, fresco: FrescoState, cfg: SamplerConfig, noise, lat_t, mesh: Mesh):
         """Decoded-image background smoothing of the predicted x0: VAE
         decode, ``warp_and_fuse`` (chunk 1), VAE encode with ``noise[g]``
-        as group g's posterior noise, in groups of gcd(F, bg_vae_chunk)."""
+        as group g's posterior noise, in groups of gcd(F, bg_vae_chunk).
+        Over a mesh each rank decodes and encodes its own frames."""
         f = x0.shape[0]
-        g = math.gcd(f, cfg.bg_vae_chunk)
+        g = math.gcd(f // mesh.data, cfg.bg_vae_chunk)
         with record_function("fresco::bg_smoothing"):
-            img = torch.cat([self.vae.decode(x0[i : i + g]) for i in range(0, f, g)])
-            img = warp_and_fuse(img.to(lat_t), fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
+            x0_l = local_frames(x0, mesh)
+            img = torch.cat([self.vae.decode(x0_l[i : i + g]) for i in range(0, x0_l.shape[0], g)])
+            img = gather_frames(img.to(lat_t), mesh)
+            img = warp_and_fuse(img, fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
                                 fresco.bwd_occ, fresco.saliency, chunk=1)
-            return torch.cat([self.vae.encode(img[i : i + g], noise[i // g]).to(lat_t)
-                              for i in range(0, f, g)])
+            img_l, noise_l = local_frames(img, mesh), local_frames(torch.cat(list(noise)), mesh)
+            return gather_frames(torch.cat([self.vae.encode(img_l[i : i + g], noise_l[i : i + g]).to(lat_t)
+                                            for i in range(0, img_l.shape[0], g)]), mesh)
 
     @torch.no_grad()
     def sample(self, frames, prompt_embeds, edges, cond_scale, fresco: FrescoState,
@@ -131,9 +146,14 @@ class FrescoSampler:
         init_noise [F,h,w,4], enc_noise [F,h,w,4], step_noise [T',F,h,w,4],
         bg_enc_noise {step index: [group noise [g,h,w,4], ...]} for the
         background-smoothing re-encode (drawn from ``generator`` where
-        missing).  Returns (latents [F,h,w,4], record_out [T',2,h,w,4])."""
+        missing).  Every input holds the whole batch, on every rank of a
+        mesh, except ``fresco.attn.ref_features`` and
+        ``fresco.correlations``, which hold this rank's frames.  Returns
+        (latents [F,h,w,4], record_out [T',2,h,w,4]), whole on every rank."""
         f = frames.shape[0]
         s = self.scheduler
+        mesh = self.mesh.for_frames(f)
+        fm = mesh if mesh.data > 1 else None
         lat_t = torch.promote_types(frames.dtype, torch.float32)
         if init_noise is None or enc_noise is None or step_noise is None:
             if generator is None:
@@ -146,14 +166,16 @@ class FrescoSampler:
         if cfg.num_warmup_steps < 0:
             latents = init_noise.to(lat_t)  # pure-noise init (pipe_FRESCO.py:155-157)
         else:
-            latent_x0 = self.vae.encode(frames, enc_noise).to(lat_t)
+            latent_x0 = gather_frames(self.vae.encode(local_frames(frames, mesh), local_frames(enc_noise, mesh))
+                                      .to(lat_t), mesh)
             latents = s.add_noise(latent_x0, init_noise.to(lat_t), int(s.timesteps_np[cfg.num_warmup_steps]))
 
         gates = self.step_gates(cfg)
         rec_list = []
         cond_emb = None
         if cfg.use_controlnet and edges is not None:
-            cond_emb = embed_cond(self.controlnet, torch.cat([edges] * 2, dim=0))
+            cond_emb = embed_cond(self.controlnet, torch.cat([local_frames(edges, mesh)] * 2, dim=0))
+        prompt_embeds = local_frames(prompt_embeds, mesh, chunk=2)
         scales = np.asarray(cond_scale, dtype=np.float64)[max(cfg.num_warmup_steps, 0):]
 
         for i, gate in enumerate(gates):
@@ -163,7 +185,7 @@ class FrescoSampler:
                 latents[0:2] = record_in[i].to(lat_t)
             rec_list.append(torch.stack([latents[0], latents[f - 1]]))
 
-            lmi = torch.cat([latents] * 2, dim=0)
+            lmi = torch.cat([local_frames(latents, mesh)] * 2, dim=0)
             ctrl = None
             if cond_emb is not None:
                 with record_function("fresco::controlnet"):
@@ -171,7 +193,7 @@ class FrescoSampler:
                                            cond_is_embedded=True)
             attn = fresco.attn
             if attn is not None:
-                attn = dataclasses.replace(attn, use_intra=gate["use_intra"], use_inter=gate["use_inter"])
+                attn = dataclasses.replace(attn, use_intra=gate["use_intra"], use_inter=gate["use_inter"], mesh=fm)
             guidance_fn = None
             if gate["do_opt"] and (fresco.correlations is not None or fresco.fwd_flow is not None):
                 def guidance_fn(stage, x):
@@ -180,17 +202,17 @@ class FrescoSampler:
                     corr = fresco.correlations.get(stage) if fresco.correlations is not None else None
                     with record_function("fresco::optimize_feature"):
                         y = optimize_feature(x, fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
-                                             fresco.bwd_occ, corr, cfg.guidance, corr_is_dense=False)
+                                             fresco.bwd_occ, corr, cfg.guidance, corr_is_dense=False, mesh=fm)
                     if fresco.saliency is not None and fresco.fwd_flow is not None:
                         with record_function("fresco::bg_smoothing"):
                             y = warp_and_fuse(y, fresco.fwd_flow, fresco.bwd_flow, fresco.fwd_occ,
-                                              fresco.bwd_occ, fresco.saliency, chunk=cfg.guidance.chunk)
+                                              fresco.bwd_occ, fresco.saliency, chunk=cfg.guidance.chunk, mesh=fm)
                     return y
             with record_function("fresco::unet"):
                 eps = self.unet(lmi, t, prompt_embeds, controlnet_residuals=ctrl, fresco=attn,
                                 guidance_fn=guidance_fn).to(lat_t)
             eps_u, eps_c = eps.chunk(2, dim=0)
-            eps = eps_u + cfg.guidance_scale * (eps_c - eps_u)
+            eps = gather_frames(eps_u + cfg.guidance_scale * (eps_c - eps_u), mesh)
 
             pred_x0 = s.predict_x0(latents, eps, t)
             if gate["do_bg"] and cfg.bg_smooth_latents and fresco.saliency is not None:
@@ -201,11 +223,16 @@ class FrescoSampler:
                     g = math.gcd(f, cfg.bg_vae_chunk)
                     noise = [torch.randn((g, *latents.shape[1:]), generator=generator, device=latents.device)
                              for _ in range(f // g)]
-                pred_x0 = self._smooth_x0(pred_x0, fresco, cfg, noise, lat_t)
+                pred_x0 = self._smooth_x0(pred_x0, fresco, cfg, noise, lat_t, mesh)
             latents = s.step_from_x0(latents, pred_x0, t, step_noise[i])
         return latents, torch.stack(rec_list)
 
     @torch.no_grad()
     def decode(self, latents):
-        """Final VAE decode to [-1,1] f32 images (run_fresco.py:250-253)."""
-        return torch.clamp(self.vae.decode(latents).float(), -1.0, 1.0)
+        """Final VAE decode to [-1,1] images, f32 (f64 stays f64)
+        (run_fresco.py:250-253); over a mesh each rank decodes its frames
+        and the images are gathered."""
+        mesh = self.mesh.for_frames(latents.shape[0])
+        img = self.vae.decode(local_frames(latents, mesh))
+        img = img.to(torch.promote_types(img.dtype, torch.float32))
+        return torch.clamp(gather_frames(img, mesh), -1.0, 1.0)

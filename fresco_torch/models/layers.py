@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fresco_torch.core import comm
+
 
 class Conv2d(nn.Module):
     """NHWC convolution, symmetric padding (Flax ``Conv2d`` wrapper);
@@ -27,6 +29,7 @@ class Conv2d(nn.Module):
     (``set_compute_dtype``) as for ``Dense``."""
 
     compute_dtype: torch.dtype | None = None
+    tp: tuple | None = None  # (mode, mesh): see make_tensor_parallel
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, bias: bool = True, dilation: int = 1, groups: int = 1):
@@ -36,7 +39,12 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return _tensor_parallel(self, x, self._conv)
         w, b = _in_compute_dtype(self)
+        return self._conv(x, w, b)
+
+    def _conv(self, x, w, b):
         xc = x.permute(0, 3, 1, 2).to(w.dtype)
         if xc.device.type == "cpu" and torch.is_grad_enabled() and (xc.requires_grad or w.requires_grad):
             # PyTorch's CPU backward of a strided 1x1 convolution over this
@@ -55,10 +63,72 @@ class Dense(nn.Linear):
     ``param_dtype`` float32 under a bf16 ``dtype``)."""
 
     compute_dtype: torch.dtype | None = None
+    tp: tuple | None = None  # (mode, mesh): see make_tensor_parallel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return _tensor_parallel(self, x, _linear)
         w, b = _in_compute_dtype(self)
         return F.linear(x.to(w.dtype), w, b)
+
+
+def _linear(x, w, b):
+    return F.linear(x.to(w.dtype), w, b)
+
+
+def _tensor_parallel(layer: nn.Module, x: torch.Tensor, op) -> torch.Tensor:
+    """``op(x, weight, bias)`` in the layer's Megatron form."""
+    mode, mesh = layer.tp
+    w, b = _in_compute_dtype(layer)
+    if mode == "column":
+        return op(comm.copy_to_model(x, mesh), w, b)
+    if mode == "column_gather":
+        return comm.gather_from_model(op(comm.copy_to_model(x, mesh), w, b), mesh)
+    if mode == "row_scatter":
+        x = comm.scatter_to_model(x, mesh)
+    y = comm.reduce_from_model(op(x, w, None), mesh)
+    return y if b is None else y + b
+
+
+@torch.no_grad()
+def make_tensor_parallel(layer: nn.Module, mode: str, mesh, geglu: bool = False) -> None:
+    """Keep this model rank's part of a ``Dense`` / ``Conv2d`` and switch it
+    to its Megatron form over ``mesh.model``:
+
+      * ``column``: output features split (weight dim 0), output local;
+        with ``geglu`` the value and gate halves are split alike;
+      * ``column_gather``: the same, then the whole output all-gathered
+        along the channel (last) axis;
+      * ``row``: input features split (weight dim 1) for an input that
+        is already local; the partial products all-reduced, then the
+        whole bias added once;
+      * ``row_scatter``: the same on a whole input, of which each rank
+        takes its part."""
+    m, r = mesh.model, mesh.model_rank
+    w, b = layer.weight, layer.bias
+    if mode in ("column", "column_gather"):
+        idx = column_part(w.shape[0], m, r, geglu).to(w.device)
+        new_w, new_b = w.index_select(0, idx), None if b is None else b.index_select(0, idx)
+    elif mode in ("row", "row_scatter"):
+        n = w.shape[1] // m
+        new_w, new_b = w[:, r * n:(r + 1) * n], b
+    else:
+        raise ValueError(f"make_tensor_parallel: unknown mode {mode!r}")
+    layer.weight = nn.Parameter(new_w.contiguous(), requires_grad=w.requires_grad)
+    if b is not None:
+        layer.bias = nn.Parameter(new_b.contiguous(), requires_grad=b.requires_grad)
+    layer.tp = (mode, mesh)
+
+
+def column_part(n_out: int, m: int, r: int, geglu: bool = False) -> torch.Tensor:
+    """The output features model rank ``r`` of ``m`` holds of a
+    column-parallel layer; with ``geglu`` the same slice of the value and of
+    the gate half, so that each rank gates its own values."""
+    if geglu:
+        n = n_out // 2 // m
+        return torch.cat([torch.arange(r * n, (r + 1) * n), n_out // 2 + torch.arange(r * n, (r + 1) * n)])
+    n = n_out // m
+    return torch.arange(r * n, (r + 1) * n)
 
 
 def _in_compute_dtype(m: nn.Module):

@@ -112,14 +112,18 @@ class CrossAttention(nn.Module):
         self.to_out = Dense(dim, dim)
 
     def forward(self, x, context):
-        qh, kh, vh = (_split_heads(t, self.heads)
-                      for t in (self.to_q(x), self.to_k(context), self.to_v(context)))
+        return self.to_out(self.attend(self.to_q(x), self.to_k(context), self.to_v(context), self.heads))
+
+    @staticmethod
+    def attend(q, k, v, heads: int):
+        """Softmax attention of q [B, S, C] over k / v [B, 77, C] -> [B, S, C]."""
+        qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
         d = qh.shape[-1]
         sd = torch.promote_types(qh.dtype, torch.float32)
         s = torch.matmul(qh, kh.transpose(-1, -2)).to(sd) * d**-0.5
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         p = (p / p.sum(dim=-1, keepdim=True)).to(vh.dtype)
-        return self.to_out(_merge_heads(torch.matmul(p, vh)))
+        return _merge_heads(torch.matmul(p, vh))
 
 
 class SelfAttention(nn.Module):

@@ -12,12 +12,16 @@ frame i.  The wrap-around pair fuses frame 0 of each chunk into its last
 frame through the last frame's forward flow.  Layouts: sample
 [chunk*N, h, w, C]; flows [N, H, W, 2] (entry i joins frame i and frame
 (i+1) % N); occlusions [N, H, W]; saliency [N, hs, ws, 1] background mask
-(1 = background) at any resolution.
+(1 = background) at any resolution.  Over a mesh (frames over ``data``)
+the sample holds this rank's frames: they are gathered, every rank runs the
+same scan over the whole batch, and each keeps its own frames, so the
+result is the single process's bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
+from fresco_torch.core import comm
 from fresco_torch.ops.morphology import dilate
 from fresco_torch.ops.resize import max_pool2d, resize_bilinear
 from fresco_torch.ops.warp import flow_warp
@@ -46,9 +50,14 @@ def prepare_flow_for_scale(flow, occ, target_hw, *, dilate_full_res: bool = True
 
 def warp_and_fuse(sample: torch.Tensor, fwd_flow: torch.Tensor, bwd_flow: torch.Tensor,
                   fwd_occ: torch.Tensor, bwd_occ: torch.Tensor, saliency: torch.Tensor,
-                  chunk: int = 2) -> torch.Tensor:
+                  chunk: int = 2, mesh=None) -> torch.Tensor:
     """Fuse the background of consecutive frames by flow warping
-    (flow_utils.py:18-53); returns ``sample``'s shape and dtype."""
+    (flow_utils.py:18-53); returns ``sample``'s shape and dtype.  With a
+    ``mesh``, ``sample`` holds this rank's frames."""
+    if mesh is not None and mesh.data > 1:
+        whole = comm.gather_frames(sample, mesh, chunk)
+        fused = warp_and_fuse(whole, fwd_flow, bwd_flow, fwd_occ, bwd_occ, saliency, chunk)
+        return comm.local_frames(fused, mesh, chunk)
     n = sample.shape[0] // chunk
     h, w = sample.shape[1:3]
     bwd_flow_s, bwd_occ_s = prepare_flow_for_scale(bwd_flow, bwd_occ, (h, w))

@@ -33,13 +33,14 @@ from fresco_torch.ops import gemm
 def sign_gram_plain(v: torch.Tensor, corr: torch.Tensor, chunk_rows: int = 1024) -> torch.Tensor:
     """S·v in row chunks of ``chunk_rows``; any dtype, any hw.  Products
     run in f32 on the gram-dtype values (exact for bf16 inputs; the sign
-    is -1/0/1 in any dtype)."""
+    is -1/0/1 in any dtype), in f64 for f64 inputs (the float64 mode)."""
     b, hw, c = v.shape
-    vf = v.float()
-    out = torch.empty((b, hw, c), dtype=torch.float32, device=v.device)
+    work = torch.promote_types(v.dtype, torch.float32)
+    vf = v.to(work)
+    out = torch.empty((b, hw, c), dtype=work, device=v.device)
     for r0 in range(0, hw, chunk_rows):
         g = torch.matmul(vf[:, r0 : r0 + chunk_rows], vf.transpose(1, 2))
-        s = torch.sign(g - corr[:, r0 : r0 + chunk_rows].float())
+        s = torch.sign(g - corr[:, r0 : r0 + chunk_rows].to(work))
         out[:, r0 : r0 + chunk_rows] = torch.matmul(s, vf)
     return out
 
@@ -75,8 +76,9 @@ def sign_matrix(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
 
 
 def sign_gram_apply(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-    """sign(v·vᵀ − corr)·v, f32 [B, hw, c].  v [B, hw, c], corr [B, hw, hw],
-    same dtype, contiguous."""
+    """sign(v·vᵀ − corr)·v, f32 [B, hw, c] (f64 on the CPU for f64 inputs;
+    the card's kernels refuse f64).  v [B, hw, c], corr [B, hw, hw], same
+    dtype, contiguous."""
     b, hw, c = v.shape
     if corr.shape != (b, hw, hw) or corr.dtype != v.dtype:
         raise ValueError(f"sign_gram_apply: corr {tuple(corr.shape)} {corr.dtype} vs v {tuple(v.shape)} {v.dtype}")

@@ -359,17 +359,24 @@ class FlowLoader:
     assembles numpy batches (augmented, NHWC float32) while the device runs
     the current step; each batch arrives as tensors on ``device`` (the card
     unless the caller passes the CPU).  An error in the thread is raised on
-    the caller's.  ``mesh`` is the JAX loader's data-axis placement, which
-    comes with the mesh slice of the port."""
+    the caller's.  ``mesh`` (a ``core.comm.Mesh``): every rank assembles
+    the same global batch and keeps its ``data`` slice of it, as the JAX
+    loader's ``frame_sharding`` placement does (``_place``); the batch size
+    must divide by ``data``."""
 
     def __init__(self, index: FlowIndex, batch_size: int,
                  augment: FlowAugmentor | None = None, mesh=None,
                  shuffle: bool = True, seed: int = 0, prefetch: int = 2,
                  drop_last: bool = True, device=None):
-        if mesh is not None:
-            raise NotImplementedError("FlowLoader(mesh=...): placing batches on a device mesh comes with the "
-                                      "port's mesh slice (parallel/sharding.py); pass mesh=None")
+        from fresco_torch.core.comm import Mesh
         from fresco_torch.pipeline.runner import resolve_device
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"FlowLoader(mesh=...): expected a core.comm.Mesh (parallel.sharding.make_mesh), "
+                            f"got {type(mesh).__name__}")
+        if mesh is not None and batch_size % mesh.data:
+            raise ValueError(f"FlowLoader: batch size {batch_size} does not split over data={mesh.data}")
+        self.mesh = mesh
 
         self.index = index
         self.batch_size = batch_size
@@ -401,7 +408,10 @@ class FlowLoader:
         return out
 
     def _place(self, batch):
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        if self.mesh is not None and self.mesh.data > 1:
+            sl = self.mesh.frame_slice(self.batch_size)
+            batch = {k: v[sl] for k, v in batch.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in batch.items()}
 
     def __iter__(self):
         order = np.arange(len(self.index))

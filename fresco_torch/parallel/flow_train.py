@@ -1,4 +1,4 @@
-"""GMFlow fine-tuning on one device.
+"""GMFlow fine-tuning on one device or data parallel over a mesh.
 
 Counterpart of ``fresco_tpu/parallel/flow_train.py``: the supervised
 objective of the reference's GMFlow trainer (gamma-weighted L1 over the
@@ -10,6 +10,12 @@ The optimizer is ``scripts/train_gmflow.py:134-147``'s, ported as it is:
 ``optax.clip_by_global_norm`` (``clip_by_global_norm_``), then AdamW with
 ``optax.cosine_onecycle_schedule`` (``cosine_onecycle_schedule``, a plain
 function of the update count; the first update reads count 0).
+
+Data parallel (``flow_train_step(..., mesh=)``): each rank takes its slice
+of the global batch (``FlowLoader(mesh=...)``), its loss over the data
+ranks' count, and the gradients are summed over ``data`` before the
+clipping, so every rank takes the single process's step on the whole
+batch.  GMFlow stays whole on every rank (no split over ``model``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from fresco_torch.core.comm import Mesh, all_reduce_grads, all_reduce_sum
 from fresco_torch.ops.warp import flow_warp
 
 
@@ -141,17 +148,24 @@ def make_flow_train_state(model: nn.Module, *, steps: int, lr: float = 4e-4, war
 
 
 def flow_train_step(state: FlowTrainState, img0: torch.Tensor, img1: torch.Tensor,
-                    gt_flow: torch.Tensor | None = None, valid: torch.Tensor | None = None):
+                    gt_flow: torch.Tensor | None = None, valid: torch.Tensor | None = None,
+                    mesh: Mesh | None = None):
     """One step; supervised when ``gt_flow`` is given, else unsupervised.
-    img0/img1 [B, H, W, 3] in [0, 255].  Returns (state with its step
-    advanced, the loss as a float32 scalar on the device)."""
+    img0/img1 [B, H, W, 3] in [0, 255]: this rank's slice of the global
+    batch over a ``mesh`` (equal slices).  Returns (state with its step
+    advanced, the global batch's loss as a scalar on the device)."""
+    mesh = mesh or Mesh()
     state.optimizer.zero_grad(set_to_none=True)
     fwd = state.model(img0, img1)[: img0.shape[0]]
     if gt_flow is not None:
         loss, _ = flow_sequence_loss(fwd, gt_flow, valid)
     else:
         loss = photometric_smoothness_loss(img0 / 255.0, img1 / 255.0, fwd)
+    if mesh.data > 1:
+        loss = loss / mesh.data  # this rank's share of the mean over equal slices
     loss.backward()
+    all_reduce_grads(state.optimizer, mesh)
+    loss = all_reduce_sum(loss.detach(), mesh.data_group, mesh.data)
     clip_by_global_norm_(fill_missing_grads(state.optimizer), state.grad_clip)
     for g in state.optimizer.param_groups:
         g["lr"] = state.schedule(state.step)

@@ -12,6 +12,11 @@ src/diffusion_hacked.py PART III):
     (the spatial loss's reference gram, stored factored);
   * ``build_attn_params``: the attention inputs, with the cross-frame keys
     compacted valid-first.
+
+Over a mesh (frames over ``data``; every rank holds every input frame)
+each rank computes the flows of its own pairs (frame i and i+1 mod F) and
+gathers them, then the occlusions, key masks and trajectories of the whole
+batch; the intra-frame pass runs on its own frames only.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from fresco_torch.attention.fresco_attention import FrescoAttnParams
+from fresco_torch.core.comm import gather_frames, local_frames
 from fresco_torch.diffusion.scheduler import DDPMScheduler
 from fresco_torch.ops.mapping import batch_mappings
 from fresco_torch.ops.resize import resize_bilinear
@@ -31,13 +37,18 @@ from fresco_torch.ops.warp import flow_warp, forward_backward_consistency
 def interframe_params(flow_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                       frames_255: torch.Tensor, *, photo_thresh: float = 0.25,
                       mask_scales: tuple[int, ...] = (8, 16, 32),
-                      traj_scales: tuple[int, ...] = (8, 16)):
+                      traj_scales: tuple[int, ...] = (8, 16), mesh=None):
     """frames_255 [F,H,W,3] in [0,255]; flow_fn(frames, rolled) ->
     [2F,H,W,2] (forward flows, then backward).  Returns ((fwd, bwd) flows,
-    (fwd, bwd) occlusions, cf_masks {hw: bool [F,hw]}, trajectories)."""
+    (fwd, bwd) occlusions, cf_masks {hw: bool [F,hw]}, trajectories), all
+    of the whole batch; with a ``mesh`` each rank runs ``flow_fn`` on its
+    own pairs."""
     f, H, W, _ = frames_255.shape
     rolled = torch.roll(frames_255, -1, dims=0)
-    flow_bidir = flow_fn(frames_255, rolled)
+    if mesh is not None and mesh.data > 1:
+        flow_bidir = gather_frames(flow_fn(local_frames(frames_255, mesh), local_frames(rolled, mesh)), mesh, 2)
+    else:
+        flow_bidir = flow_fn(frames_255, rolled)
     fwd_flows, bwd_flows = flow_bidir[:f], flow_bidir[f:]
     fwd_occs, bwd_occs = forward_backward_consistency(fwd_flows, bwd_flows)
 
@@ -70,13 +81,17 @@ def interframe_params(flow_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tens
 @torch.no_grad()
 def intraframe_params(unet, vae, scheduler: DDPMScheduler, frames: torch.Tensor,
                       prompt_embeds: torch.Tensor, *, noise: torch.Tensor,
-                      enc_noise: torch.Tensor, corr_dtype=torch.bfloat16):
+                      enc_noise: torch.Tensor, corr_dtype=torch.bfloat16, mesh=None):
     """Reference pass: decoder attention inputs + per-stage features.
 
     frames [F,H,W,3] in [-1,1]; prompt_embeds [2F,77,C]; ``noise`` (the
     forward-diffusion noise) and ``enc_noise`` (the VAE posterior noise)
     standard normal [F,H/8,W/8,4].  Returns (ref_features tuple in FRESCO-
-    layer order, {stage: normalized features [2F,hw,C] in corr_dtype})."""
+    layer order, {stage: normalized features [2F,hw,C] in corr_dtype}); with
+    a ``mesh`` the pass runs on this rank's frames and returns theirs."""
+    if mesh is not None and mesh.data > 1:
+        frames, noise, enc_noise = (local_frames(x, mesh) for x in (frames, noise, enc_noise))
+        prompt_embeds = local_frames(prompt_embeds, mesh, chunk=2)
     t_last = int(scheduler.timesteps_np[-1])
     lat_t = torch.promote_types(frames.dtype, torch.float32)
     latent_x0 = vae.encode(frames, enc_noise).to(lat_t)

@@ -24,8 +24,17 @@ checkpoint beside ``gmflow_path``, or random weights with
 ``random_aux_weights=True``; OpenPose also needs ``cv2``), else OpenCV's
 canny where ``cv2`` can be imported, else none (``ModelBundle.detector``
 must then be set).  ``ModelBundle.flow_fn`` overrides GMFlow as the flow
-source.  A ``mesh_shape`` of more than one device raises: ``parallel/``
-is not ported.
+source.
+
+A ``mesh_shape`` (data, model) of more than one rank runs SPMD, one
+process per rank (F23, ``parallel/sharding.py``): the process group must
+be initialized with ``prod(mesh_shape)`` ranks (``torchrun
+--nproc-per-node N``, or ``parallel.distributed.initialize``), else the
+pipeline raises before it builds a model.  Every rank reads the same
+inputs and gets the whole result; only rank 0 writes files.
+``dtype="float64"`` computes the UNet, ControlNet, VAE, flows, grams,
+latents and feature optimization in float64 (the sharding-validation
+mode; on the card the kernels refuse it and raise).
 """
 from __future__ import annotations
 
@@ -74,6 +83,8 @@ class ModelBundle:
     saliency_fn: Callable[[np.ndarray], torch.Tensor] | None = None
     # seconds spent on each loaded checkpoint: {model: {read, convert, to_device}}
     load_seconds: dict = dataclasses.field(default_factory=dict)
+    # the mesh whose model axis the UNet and ControlNet are split over (None: whole)
+    tp_mesh: Any = None
 
 
 def _no_detector(img: np.ndarray) -> np.ndarray:
@@ -117,8 +128,19 @@ def _local_ckpt_dir(spec, ckpt_dir: str) -> str | None:
     return None
 
 
+_MODEL_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
+
+
 def model_dtype(config: FrescoConfig) -> torch.dtype:
-    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+    """The UNet / ControlNet / VAE dtype: bfloat16, float64 (the
+    sharding-validation mode, ``fresco_tpu/pipeline/runner.py:84-90``),
+    else float32."""
+    return _MODEL_DTYPES.get(config.dtype, torch.float32)
+
+
+def frame_dtype(config: FrescoConfig) -> torch.dtype:
+    """The frames' and flows' dtype: float64 in the float64 mode, else float32."""
+    return torch.float64 if config.dtype == "float64" else torch.float32
 
 
 _AUX_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -370,11 +392,30 @@ def _build_saliency(config: FrescoConfig, device, gen, random_aux_weights: bool,
     return make_saliency_fn(eg)
 
 
-def _check_mesh(config: FrescoConfig) -> None:
-    if int(np.prod(config.mesh_shape)) > 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(config.mesh_shape)}: running over a device mesh needs the parallel/ "
-            "modules, which fresco_torch does not port yet; use mesh_shape (1, 1)")
+def _make_mesh(config: FrescoConfig):
+    """The mesh of ``config.mesh_shape`` (F23: raises without a process
+    group of ``prod(mesh_shape)`` ranks)."""
+    from fresco_torch.parallel.sharding import make_mesh
+
+    shape = tuple(int(n) for n in config.mesh_shape)
+    if len(shape) != 2:
+        raise ValueError(f"mesh_shape {shape}: expected (data, model)")
+    return make_mesh(*shape)
+
+
+def _shard_bundle(bundle: ModelBundle, mesh) -> None:
+    """Split the UNet and the ControlNet over ``mesh.model`` (once a bundle)."""
+    if bundle.tp_mesh is not None:
+        if bundle.tp_mesh.shape != mesh.shape:
+            raise ValueError(f"the bundle is split over mesh {bundle.tp_mesh.shape}, not {mesh.shape}")
+        return
+    if mesh.model == 1:
+        return
+    from fresco_torch.parallel.sharding import shard_model_params
+
+    shard_model_params(bundle.unet, mesh, "unet")
+    shard_model_params(bundle.controlnet, mesh, "controlnet")
+    bundle.tp_mesh = mesh
 
 
 class FrescoPipeline:
@@ -388,9 +429,11 @@ class FrescoPipeline:
                  tiny: bool = False, device: torch.device | str | None = None):
         """``bundle``: the models (``build_models``; pass one built with
         ``random_aux_weights=True`` for random HED and EGNet weights), else
-        a random-weight stack is built."""
-        _check_mesh(config)
+        a random-weight stack is built.  A ``mesh_shape`` of more than one
+        rank needs this process's process group (F23)."""
+        self.mesh = _make_mesh(config)
         self.bundle = bundle or build_models(config, tiny=tiny, seed=config.seed, device=device)
+        _shard_bundle(self.bundle, self.mesh)
         self.device = self.bundle.device
         self.phases = PhaseTimes()
         self.set_config(config)
@@ -418,7 +461,7 @@ class FrescoPipeline:
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         b = self.bundle
         self.sampler = FrescoSampler(b.unet, b.vae, b.controlnet,
-                                     DDPMScheduler(num_inference_steps=config.num_inference_steps))
+                                     DDPMScheduler(num_inference_steps=config.num_inference_steps), self.mesh)
         self._base_sampler_cfg = self.make_sampler_cfg(config)
 
     @staticmethod
@@ -446,27 +489,39 @@ class FrescoPipeline:
 
     def gmflow_flow_fn(self):
         """The bundle's GMFlow as a flow function: frames rounded to
-        ``config.aux_dtype``, flows in float32."""
+        ``config.aux_dtype``, flows in float32 (float64 in the float64 mode,
+        as ``fresco_tpu/pipeline/runner.py:424-431``)."""
         gm = self.bundle.gmflow
         if gm is None:
             raise RuntimeError("no flow source: the bundle has neither flow_fn nor gmflow")
         dt = aux_dtype(self.config)
+        flow_t = frame_dtype(self.config)
 
         @torch.no_grad()
         def flow_fn(a, b):
-            return gm(a.to(dt).float(), b.to(dt).float())
+            return gm(a.to(dt).float(), b.to(dt).float()).to(flow_t)
 
         return flow_fn
 
     def _interframe(self, frames_255):
         flow_fn = self.bundle.flow_fn or self.gmflow_flow_fn()
-        return prepare.interframe_params(flow_fn, frames_255, photo_thresh=self.config.photo_occ_thresh)
+        return prepare.interframe_params(flow_fn, frames_255, photo_thresh=self.config.photo_occ_thresh,
+                                         mesh=self._frame_mesh(frames_255.shape[0]))
+
+    def _frame_mesh(self, n: int):
+        """The mesh's frame axis for an ``n``-frame batch, None where it has one rank."""
+        mesh = self.mesh.for_frames(n)
+        return mesh if mesh.data > 1 else None
 
     def _intraframe(self, frames_unit, prompt_embeds, noise, enc_noise):
-        corr_dtype = torch.bfloat16 if self.config.gram_dtype == "bfloat16" else torch.float32
+        if self.config.dtype == "float64":  # the sharding-validation mode (fresco_tpu runner.py:444-447)
+            corr_dtype = torch.float64
+        else:
+            corr_dtype = torch.bfloat16 if self.config.gram_dtype == "bfloat16" else torch.float32
         b = self.bundle
         return prepare.intraframe_params(b.unet, b.vae, self.sampler.scheduler, frames_unit, prompt_embeds,
-                                         noise=noise, enc_noise=enc_noise, corr_dtype=corr_dtype)
+                                         noise=noise, enc_noise=enc_noise, corr_dtype=corr_dtype,
+                                         mesh=self._frame_mesh(frames_unit.shape[0]))
 
     def _translate_batch(self, imgs, prompts, n_prompts, record, propagation, noise=None):
         """Prep + denoise for one batch."""
@@ -485,9 +540,10 @@ class FrescoPipeline:
         dev = self.device
         gen = generator or self.generator
         noise = noise or {}
+        ftype = frame_dtype(cfg)
         with self._phase("upload_frames"):
             frames_u8 = torch.as_tensor(np.stack(imgs), device=dev)
-        frames_255 = frames_u8.to(torch.float32)
+        frames_255 = frames_u8.to(ftype)
         frames_unit = frames_255 / 255.0 * 2.0 - 1.0
         with self._phase("encode_prompts"):
             prompt_embeds = encode_prompts(b.text_encoder, b.tokenizer, prompts, n_prompts)
@@ -496,7 +552,7 @@ class FrescoPipeline:
         if edges_np.ndim == 3:
             edges_np = edges_np[..., None]
         edges_u8 = torch.as_tensor(edges_np, device=dev)
-        edges = (edges_u8.to(torch.float32) / 255.0).expand(*edges_u8.shape[:3], 3)
+        edges = (edges_u8.to(ftype) / 255.0).expand(*edges_u8.shape[:3], 3)
 
         fresco_state = FrescoState()
         if cfg.use_fresco_attn or cfg.use_fresco_opt or cfg.use_saliency:
@@ -638,11 +694,16 @@ class FrescoPipeline:
         before it.  ``reuse``: when every keyframe PNG exists already, skip the
         translation.  The host work around the batches is timed as the phases
         read_video, select_keyframes, write_video_frames and write_keyframes.
-        Returns the key indices."""
+        Over a mesh every rank decodes and translates, only rank 0 writes,
+        and rank 0's files decide ``reuse`` for every rank (a rank that
+        skipped alone would leave the others waiting in the batch's first
+        gather).  Returns the key indices."""
+        from fresco_torch.parallel.distributed import is_main_process, main_process_value
         from fresco_torch.propagate.video_blend import _codec
 
         Image = _codec()
         cfg = self.config
+        writer = is_main_process()
         for sub in ("keys", "video"):
             os.makedirs(os.path.join(cfg.save_path, sub), exist_ok=True)
         with self._phase("read_video"):
@@ -654,17 +715,17 @@ class FrescoPipeline:
         with self._phase("write_video_frames"):
             frames = [resize_image(f, cfg.resolution) for f in raw]
             del raw
-            for i, f in enumerate(frames):
+            for i, f in enumerate(frames if writer else ()):
                 Image.fromarray(f).save(os.path.join(cfg.save_path, "video", "%04d.png" % i))
         key_path = lambda k: os.path.join(cfg.save_path, "keys", "%04d.png" % k)  # noqa: E731
-        if reuse and all(os.path.exists(key_path(k)) for k in keys):
+        if reuse and main_process_value(all(os.path.exists(key_path(k)) for k in keys)):
             if verbose:
                 print("[fresco_torch] all keyframes present: skipping translation (resume)")
             return keys
 
         def save(batch: dict[int, np.ndarray]) -> None:
             with self._phase("write_keyframes"):
-                for k, img in batch.items():
+                for k, img in (batch.items() if writer else ()):
                     Image.fromarray(img).save(key_path(k))
 
         self.translate_keyframes(frames, keys, verbose=verbose, on_batch=save)

@@ -13,8 +13,13 @@ every ``--val-every`` steps.  Supervised with ``--dataset`` and
     python -m fresco_torch.scripts.train_gmflow --synthetic --steps 4 --ckpt-every 2 --ckpt-dir ck
     python -m fresco_torch.scripts.train_gmflow --synthetic --steps 4 --resume ck/step_2
 
-``--data-par`` above 1 (data parallel over a device mesh) comes with the
-port's mesh slice and raises until then.
+``--data-par N`` trains data parallel over N ranks, one process each
+(F23), under ``torchrun --nproc-per-node N`` (or in a process group
+already initialized): every rank assembles the same global batch and takes
+its slice, the gradients are summed, and only rank 0 writes checkpoints
+and logs.  Without a process group of N ranks it raises.
+
+    torchrun --nproc-per-node 2 -m fresco_torch.scripts.train_gmflow --synthetic --steps 4 --data-par 2
 """
 from __future__ import annotations
 
@@ -91,9 +96,14 @@ def main(argv=None) -> dict:
     """Train; returns {'done': steps taken, 'losses': every logged loss,
     'model': the GMFlow module as it ends}."""
     args = parse_args(argv)
+    from fresco_torch.parallel import distributed
+    from fresco_torch.parallel.sharding import make_mesh
+
     if args.data_par > 1:
-        raise NotImplementedError("--data-par > 1 (data parallel over a device mesh) comes with the port's mesh "
-                                  "slice (parallel/sharding.py); run with --data-par 1")
+        distributed.initialize(device_type="cpu" if args.device == "cpu" else None)
+    mesh = make_mesh(args.data_par)  # raises without a process group of data_par ranks (F23)
+    main_rank = distributed.is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
     from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
     from fresco_torch.models.layers import init_flax_default_
     from fresco_torch.parallel import flow_data as fd
@@ -110,7 +120,8 @@ def main(argv=None) -> dict:
     augment = None
     if supervised and not args.synthetic:
         augment = fd.FlowAugmentor(fd.AugmentConfig(crop_size=crop), sparse=index.sparse, seed=args.seed)
-    loader = fd.FlowLoader(index, args.batch_size, augment=augment, seed=args.seed, device=dev)
+    loader = fd.FlowLoader(index, args.batch_size, augment=augment, seed=args.seed, device=dev,
+                           mesh=mesh if mesh.data > 1 else None)
 
     # init / resume
     gen = torch.Generator().manual_seed(args.seed)
@@ -119,13 +130,14 @@ def main(argv=None) -> dict:
         restored = load_params(args.resume)
         if restored is not None:
             model.load_state_dict(restored)
-            print(f"[train_gmflow] resumed params from {args.resume}")
+            say(f"[train_gmflow] resumed params from {args.resume}")
     # optimizer: one-cycle cosine + AdamW + global-norm clip (main.py:188,353,409)
     state = make_flow_train_state(model, steps=args.steps, lr=args.lr, warmup_frac=args.warmup_frac,
                                   weight_decay=args.weight_decay, grad_clip=args.grad_clip)
 
     def save(name):
-        save_params(os.path.join(args.ckpt_dir, name), model.state_dict())
+        if main_rank:
+            save_params(os.path.join(args.ckpt_dir, name), model.state_dict())
 
     losses = []
     t0 = time.perf_counter()
@@ -135,29 +147,30 @@ def main(argv=None) -> dict:
             if done >= args.steps:
                 break
             if supervised:
-                state, loss = flow_train_step(state, batch["img0"], batch["img1"], batch["flow"], batch["valid"])
+                state, loss = flow_train_step(state, batch["img0"], batch["img1"], batch["flow"], batch["valid"],
+                                              mesh=mesh)
             else:
-                state, loss = flow_train_step(state, batch["img0"], batch["img1"])
+                state, loss = flow_train_step(state, batch["img0"], batch["img1"], mesh=mesh)
             done += 1
             if done % args.log_every == 0 or done == args.steps:
                 loss_v = float(loss)
                 losses.append(loss_v)
                 rate = done / (time.perf_counter() - t0)
-                print(f"[train_gmflow] step {done}/{args.steps} loss={loss_v:.4f} "
+                say(f"[train_gmflow] step {done}/{args.steps} loss={loss_v:.4f} "
                       f"lr={state.schedule(done):.2e} {rate:.2f} it/s", flush=True)
                 if not math.isfinite(loss_v):
                     raise FloatingPointError("training diverged (non-finite loss)")
             if args.ckpt_dir and done % args.ckpt_every == 0:
                 save(f"step_{done}")
-            if args.val_every and done % args.val_every == 0 and supervised and not args.synthetic:
+            if args.val_every and done % args.val_every == 0 and supervised and not args.synthetic and main_rank:
                 res = validate(model, (index.load(i) for i in range(len(index))), max_samples=50)
-                print(f"[train_gmflow] val@{done}: {res}", flush=True)
+                say(f"[train_gmflow] val@{done}: {res}", flush=True)
         if args.steps and done == 0:
             raise ValueError(f"the loader yields no batch: {len(index)} samples, batch size {args.batch_size}")
 
     if args.ckpt_dir:
         save("final")
-    print(f"[train_gmflow] done: {done} steps")
+    say(f"[train_gmflow] done: {done} steps")
     return {"done": done, "losses": losses, "model": model}
 
 

@@ -36,8 +36,19 @@ def test_schema_and_helpers_equal():
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 4), (2, 2)])
 def test_a_device_mesh_raises_until_parallel_is_ported(mesh):
     """The JAX pipeline shards over a mesh when prod(mesh_shape) > 1; the
-    port says it cannot, before it builds a model."""
-    from fresco_torch.pipeline.runner import FrescoPipeline
+    port runs one process per rank (F23), so a single process with no
+    process group says how to launch one, before it builds a model."""
+    import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        FrescoPipeline(tc.FrescoConfig(mesh_shape=mesh), tiny=True, device="cpu")
+    from fresco_torch.pipeline import runner
+
+    assert not dist.is_initialized()
+    built = []
+    real = runner.build_models
+    runner.build_models = lambda *a, **k: built.append(1)
+    try:
+        with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
+            runner.FrescoPipeline(tc.FrescoConfig(mesh_shape=mesh), tiny=True, device="cpu")
+    finally:
+        runner.build_models = real
+    assert not built
