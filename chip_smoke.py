@@ -164,14 +164,17 @@ Phases (each prints its own lines; any failure exits non-zero):
                itself, a K-sized gather as handed and as staged by hand); a
                process group of one over NCCL, bit-equal to no group; then
                config_music's 8-keyframe 512x512 batch at 4 steps, feature
-               optimization off and on, in worlds of ranks spawned on this
-               card over gloo at meshes (2, 1), (1, 2), (2, 2), each rank
-               against the single process and against the witness (one
+               optimization off and on, its flows from the bundle's
+               full-width GMFlow, in worlds of ranks spawned on this card
+               over gloo at meshes (2, 1), (1, 2), (2, 2) (over model the
+               UNet, ControlNet, VAE, text encoder and GMFlow split), each
+               rank against the single process and against the witness (one
                process doing a rank's arithmetic, no collective); flash,
                sign-gram and bmm must launch in every rank; the (2, 1)
                UNet training step against the single step;
-               dryrun_multichip(4) on the card.  Walls, peak memory and
-               launches per rank, reported and not judged.
+               dryrun_multichip(4) on the card.  Walls, peak memory,
+               launches and each model's parameter bytes per rank (whole
+               and split), reported and not judged.
 Every kernel line gives its time, its plain version's, its bound (the
 larger of bytes over 3.35 TB/s and operations over the data-sheet peak;
 for flash also one exp2 per logit over the special-function units' rate)
@@ -2659,7 +2662,8 @@ MESH_FRAMES = 8
 # every step, and a step over gloo through host memory costs ~10x one alone;
 # feature optimization (20 Adam iterations) in both, background smoothing in the last
 MESH_STEPS = dict(num_inference_steps=4, num_warmup_steps=2, end_opt_step=4, bg_smoothing_steps=(3,))
-# Sharded against single on the card, bf16 (H100 80GB HBM3, 700 W).  The
+# Sharded against single on the card, bf16 (H100 80GB HBM3, 700 W), read
+# with known flows and only the UNet and ControlNet split.  The
 # witness (smoke.rank_sized_layers: one process doing a rank's arithmetic,
 # no collective) reads what kernels run at a rank's shapes, row places and
 # TP partial sums alone move the single run: latents 5.10e-2 (2, 1),
@@ -2681,42 +2685,39 @@ MESH_TRAIN_LOSS_REL = 1e-3
 MESH_TRAIN_GRAD_REL = 5e-2   # max |d| / max |g|, as phase 15's kernel-vs-naive step
 
 
-def known_flow_fn(frames, flows, dev):
-    """A flow function over any subset of ``frames``: each frame is found
-    among them by its top-left 8x8 corner and gets its known flows
-    (``make_inputs``), so a rank's own pairs get theirs."""
-    n = len(frames)
-    keys = torch.stack([torch.from_numpy(f[:8, :8].astype(np.float32)).flatten() for f in frames]).to(dev)
-    fl = torch.from_numpy(flows).to(dev)
-
-    def flow_fn(a, b):
-        idx = torch.cdist(a[:, :8, :8].reshape(a.shape[0], -1).float(), keys).argmin(1)
-        return torch.cat([fl[idx], fl[n + idx]])
-
-    return flow_fn
-
-
 def _mesh_batches(seed: int, dev, mesh_shape, tiny: bool = False, res: int = 512, witness=None) -> dict:
     """config_music's batch of MESH_FRAMES keyframes (MESH_STEPS) on this
-    process's mesh, with feature optimization off and then on: the latents
-    of the first, the decoded frames of the second, the wall, peak memory
-    and kernel launches of each.  ``witness``: the single process doing a
+    process's mesh, the bundle's GMFlow the flow source, with feature
+    optimization off and then on: the latents of the first, the decoded
+    frames of the second, the wall, peak memory and kernel launches of each,
+    and each model's split layers and parameter bytes on this rank
+    (``sharding.split_report``).  ``witness``: the single process doing a
     rank's arithmetic of that (data, model) mesh (``smoke.rank_sized_layers``)."""
     import contextlib
 
     from fresco_torch import kernels
+    from fresco_torch.parallel.sharding import split_report
     from fresco_torch.parallel.smoke import rank_sized_layers
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
 
     cfg = music_config(mesh_shape=tuple(mesh_shape), resolution=res, use_fresco_opt=False, **MESH_STEPS)
     t0 = time.perf_counter()
     bundle = build_models(cfg, tiny=tiny, seed=seed, device=dev, random_aux_weights=True)
-    frames, flows, detector = make_inputs(seed, MESH_FRAMES, res)
-    bundle.flow_fn = known_flow_fn(frames, flows, dev)
+    frames, _, detector = make_inputs(seed, MESH_FRAMES, res)
     bundle.detector = detector
     pipe = FrescoPipeline(cfg, bundle)
-    out = {"build_s": time.perf_counter() - t0}
+    if bundle.flow_fn is not None or bundle.gmflow is None:
+        fail("mesh: the batch must take its flows from the bundle's GMFlow")
+    out = {"build_s": time.perf_counter() - t0, "split": split_report(bundle)}
     prompts, negs = prompts_for(cfg, MESH_FRAMES)
+    interframe, seen = pipe._interframe, []
+
+    def keep_flows(frames_255):  # GMFlow's flows and occlusion masks of the first batch, whole on every rank
+        got = interframe(frames_255)
+        seen.append(got)
+        return got
+
+    pipe._interframe = keep_flows
     with rank_sized_layers(bundle, *witness) if witness else contextlib.nullcontext():
         for opt in (False, True):
             pipe.set_config(cfg.replace(use_fresco_opt=opt))
@@ -2729,6 +2730,8 @@ def _mesh_batches(seed: int, dev, mesh_shape, tiny: bool = False, res: int = 512
             key = "opt" if opt else "plain"
             out[key] = {"latents": latents.float().cpu(), "images": images, "wall_s": time.perf_counter() - t0,
                         "peak_gib": _peak_gib(dev), "launches": kernels.launches()}
+    flows, occs, _, _ = seen[0]
+    out["flows"], out["occ"] = torch.cat(list(flows)).float().cpu(), torch.cat(list(occs)).cpu()
     return out
 
 
@@ -2769,6 +2772,16 @@ def _mesh_rank(rank: int, dev, shape, seed: int, tiny: bool, res: int, card: str
     if tuple(shape) == (2, 1):
         out["train"] = _mesh_train(seed, dev, make_mesh(*shape), train_cfg, train_res)
     return out
+
+
+def _bytes_line(split: dict, whole: dict | None = None) -> str:
+    """Each model's parameter MiB on a rank (and of the whole model, with
+    the split layers, where ``whole`` is given)."""
+    mib = lambda n: n / 2**20  # noqa: E731
+    if whole is None:
+        return ", ".join(f"{k} {mib(v['bytes']):.2f} MiB" for k, v in split.items())
+    return ", ".join(f"{k} {mib(v['bytes']):.2f} of {mib(whole[k]['bytes']):.2f} MiB ({v['split']}/{v['layers']})"
+                     for k, v in split.items())
 
 
 def _lat_rel(a: dict, b: dict) -> float:
@@ -2875,6 +2888,7 @@ def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=Non
         print(f"mesh: single process, feature optimization {'on' if key == 'opt' else 'off'}: "
               f"{MESH_FRAMES} x {res} px, wall {r['wall_s']:.2f} s, peak {r['peak_gib']:.2f} GiB, "
               f"launches {r['launches']} ({CARD})")
+    print("mesh: single process, parameter bytes whole: " + _bytes_line(single["split"]))
 
     # a process group of one over NCCL: the (1, 1) mesh is the plain path, bit for bit
     with tempfile.TemporaryDirectory() as tmp:
@@ -2919,6 +2933,20 @@ def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=Non
                   f"witness {psnr_w:.2f} dB (floor {MESH_PSNR_WITNESS_FLOOR}), vs single {psnr:.2f} dB (floor "
                   f"{MESH_PSNR_FLOOR}), wall {out['opt']['wall_s']:.2f} s, peak {out['opt']['peak_gib']:.2f} GiB, "
                   f"launches {out['opt']['launches']} ({CARD})")
+            flow_d = {k: float((out["flows"] - ref["flows"]).abs().max()) for k, ref in (("witness", witness),
+                                                                                         ("single", single))}
+            flips = {k: int((out["occ"] != ref["occ"]).sum()) for k, ref in (("witness", witness), ("single", single))}
+            rows[-1].update(flow_max_abs=flow_d, occ_flips=flips)
+            print(f"mesh {shape} rank {r}: GMFlow's flows (largest |f| {float(single['flows'].abs().max()):.2f} px) "
+                  f"max |d| vs witness {flow_d['witness']:.3e}, vs single {flow_d['single']:.3e} px; occlusion "
+                  f"pixels flipped vs witness {flips['witness']}, vs single {flips['single']} of "
+                  f"{out['occ'].numel()} ({CARD})")
+            print(f"mesh {shape} rank {r}: parameter bytes on the rank (layers split over model / Dense and "
+                  f"Conv layers): {_bytes_line(out['split'], single['split'])}; peak {out['plain']['peak_gib']:.2f} "
+                  f"/ {out['opt']['peak_gib']:.2f} GiB (off / on) ({CARD})")
+            rows[-1]["split"] = out["split"]
+            if shape[1] > 1 and any(v["split"] == 0 for v in out["split"].values()):
+                fail(f"mesh {shape} rank {r}: a model is not split over model: {out['split']}")
             if not (lat_w <= MESH_WITNESS_REL and psnr_w >= MESH_PSNR_WITNESS_FLOOR):
                 fail(f"mesh {shape} rank {r}: sharded differs from its witness")
             if not (lat_rel <= MESH_LATENT_REL and psnr >= MESH_PSNR_FLOOR):

@@ -40,7 +40,8 @@ def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_s
     A ``mesh_shape`` of more than one rank joins the process group that
     torchrun's (or Slurm's) variables name (``parallel.distributed``): every
     rank translates the keyframes, and rank 0 alone writes them, propagates
-    and reports (the other ranks return None)."""
+    and reports (the other ranks return None), with a whole GMFlow that
+    every rank helped put together from the split one first."""
     from fresco_torch.parallel import distributed
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
 
@@ -55,7 +56,11 @@ def run_config(config, tiny: bool = False, keyframes_only: bool = False, reuse_s
     t0 = time.time()
     keys = pipe.translate_keyframe_files(reuse=reuse_synthesis)
     print(f"[fresco_torch] keyframe translation: {time.time() - t0:.1f}s", flush=True)
-    if keyframes_only or not config.run_ebsynth or not distributed.is_main_process():
+    if keyframes_only or not config.run_ebsynth:
+        return None
+    if math.prod(config.mesh_shape) > 1:
+        pipe.whole_gmflow()  # every rank together: rank 0 runs GMFlow alone from here
+    if not distributed.is_main_process():
         return None
 
     from fresco_torch.propagate.video_blend import blend_video, get_fps

@@ -40,17 +40,21 @@ class CLIPAttention(nn.Module):
         self.v_proj, self.out_proj = Dense(c, c), Dense(c, c)
 
     def forward(self, x, causal_mask):
-        b, t, c = x.shape
-        d = c // self.heads
+        return self.out_proj(self.attend(self.q_proj(x), self.k_proj(x), self.v_proj(x), causal_mask, self.heads))
+
+    @staticmethod
+    def attend(q, k, v, causal_mask, heads: int):
+        """Causal softmax attention of ``heads`` heads over q / k / v [B, T, C]."""
+        b, t, c = q.shape
+        d = c // heads
 
         def split(y):
-            return y.reshape(b, t, self.heads, d).transpose(1, 2)
+            return y.reshape(b, t, heads, d).transpose(1, 2)
 
-        s = torch.matmul(split(self.q_proj(x)), split(self.k_proj(x)).transpose(-1, -2)) * d**-0.5
+        s = torch.matmul(split(q), split(k).transpose(-1, -2)) * d**-0.5
         s = torch.where(causal_mask, s.float(), torch.full_like(s.float(), -1e30))
-        p = torch.softmax(s, dim=-1).to(x.dtype)
-        o = torch.matmul(p, split(self.v_proj(x))).transpose(1, 2).reshape(b, t, c)
-        return self.out_proj(o)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.matmul(p, split(v)).transpose(1, 2).reshape(b, t, c)
 
 
 class CLIPLayer(nn.Module):

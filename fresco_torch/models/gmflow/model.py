@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fresco_torch.models.layers import Conv2d, LayerNorm32
+from fresco_torch.models.layers import Conv2d, Dense, LayerNorm32
 from fresco_torch.ops.warp import coords_grid
 
 
@@ -174,17 +174,19 @@ def full_attention(q, k_, v):
 class TransformerLayer(nn.Module):
     """(shifted-)window attention, merge, LayerNorm, and an optional FFN."""
 
+    heads = 1  # single-head attention
+
     def __init__(self, c: int, no_ffn: bool, ffn_expansion: int, with_shift: bool):
         super().__init__()
         self.no_ffn, self.with_shift = no_ffn, with_shift
-        self.q_proj = nn.Linear(c, c, bias=False)
-        self.k_proj = nn.Linear(c, c, bias=False)
-        self.v_proj = nn.Linear(c, c, bias=False)
-        self.merge = nn.Linear(c, c, bias=False)
+        self.q_proj = Dense(c, c, bias=False)
+        self.k_proj = Dense(c, c, bias=False)
+        self.v_proj = Dense(c, c, bias=False)
+        self.merge = Dense(c, c, bias=False)
         self.norm1 = LayerNorm32(c)
         if not no_ffn:
-            self.mlp_0 = nn.Linear(2 * c, 2 * c * ffn_expansion, bias=False)
-            self.mlp_2 = nn.Linear(2 * c * ffn_expansion, c, bias=False)
+            self.mlp_0 = Dense(2 * c, 2 * c * ffn_expansion, bias=False)
+            self.mlp_2 = Dense(2 * c * ffn_expansion, c, bias=False)
             self.norm2 = LayerNorm32(c)
 
     def forward(self, source, target, *, h, w, num_splits, attn_mask):
@@ -251,10 +253,12 @@ class FeatureFlowAttention(nn.Module):
     reference's quirk: the key projects the projected query), value the
     flow.  Unlike the transformer's projections these have biases."""
 
+    heads = 1
+
     def __init__(self, c: int):
         super().__init__()
-        self.q_proj = nn.Linear(c, c)
-        self.k_proj = nn.Linear(c, c)
+        self.q_proj = Dense(c, c)
+        self.k_proj = Dense(c, c)
 
     def forward(self, feature, flow):
         b, h, w, c = feature.shape

@@ -51,6 +51,8 @@ class ResnetBlock(nn.Module):
 class MidAttention(nn.Module):
     """Single-head self-attention over the spatial tokens."""
 
+    heads = 1
+
     def __init__(self, ch: int, groups: int):
         super().__init__()
         self.group_norm = GroupNorm32(ch, groups, 1e-6)

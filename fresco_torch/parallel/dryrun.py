@@ -9,7 +9,9 @@ on a ``(data, model)`` mesh with ``model = 2`` where n is even, and runs:
      split over ``model``: the loss and every rank's gradients (and, on the
      CPU, its parameters after the step) against the single-process step;
   2. ``smoke.run_full_sampler`` sharded against the single process (run
-     here, in the calling process, without a process group);
+     here, in the calling process, without a process group), with the
+     UNet, ControlNet, VAE, text encoder and GMFlow (the flow source) split
+     over ``model``; each rank prints its split layers per model;
   3. an interval wave (``propagate/parallel.run_jobs``, one patch-synthesis
      job a device) against the serial ``synthesize`` of its first job.
 
@@ -92,9 +94,11 @@ def _rank(rank: int, dev: torch.device, data: int, model: int, device: str) -> d
     loss, params, grads = _train_case(mesh, dev, 2 * data)
     t_train = time.perf_counter() - t0
     t0 = time.perf_counter()
-    latents = run_full_sampler((data, model), device=dev, **_sampler_kw(data, device))
+    report: dict = {}
+    latents = run_full_sampler((data, model), device=dev, report=report, **_sampler_kw(data, device))
     return {"loss": loss, "params": params, "grads": grads, "latents": latents, "train_s": t_train,
-            "sampler_s": time.perf_counter() - t0, "launches": kernels.launches(), "model_rank": mesh.model_rank}
+            "sampler_s": time.perf_counter() - t0, "launches": kernels.launches(), "model_rank": mesh.model_rank,
+            "split": report["split"]}
 
 
 def _expected_params(single: dict, model: int, model_rank: int, dev) -> dict:
@@ -196,7 +200,8 @@ def dryrun_multichip(n_devices: int, device: str | None = None, *, verbose: bool
             ok = p_err <= CPU_TRAIN_ATOL and loss_err <= CPU_TRAIN_ATOL
             ok = ok and np.allclose(res["latents"], single, atol=CPU_ATOL, rtol=CPU_RTOL)
         row = {"rank": r, "loss": res["loss"], "loss_err": loss_err, "param_err": p_err, "latent_err": lat_err,
-               "train_s": res["train_s"], "sampler_s": res["sampler_s"], "launches": res["launches"]}
+               "train_s": res["train_s"], "sampler_s": res["sampler_s"], "launches": res["launches"],
+               "split": res["split"]}
         vs_witness = ""
         if device == "cuda":
             row["witness_err"] = wit_err
@@ -204,7 +209,8 @@ def dryrun_multichip(n_devices: int, device: str | None = None, *, verbose: bool
         out["ranks"].append(row)
         say(f"rank {r}: train loss {res['loss']:.6f} (err {loss_err:.2e}, gradients {p_err:.2e}), sampler "
             f"sharded vs single {'rel fro' if device == 'cuda' else 'max |d|'} {lat_err:.2e}{vs_witness}, "
-            f"{res['train_s']:.2f} + {res['sampler_s']:.2f} s, launches {res['launches']}")
+            f"{res['train_s']:.2f} + {res['sampler_s']:.2f} s, launches {res['launches']}; layers split over model: "
+            + ", ".join(f"{k} {v['split']}/{v['layers']}" for k, v in res["split"].items()))
         if not ok:
             raise AssertionError(f"dryrun: rank {r} differs from the single process: {row}")
     say("1/3 sharded train step == single; 2/3 sampler sharded == single")

@@ -30,27 +30,34 @@ def rank_sized_layers(bundle, data: int = 1, model: int = 1):
     no collective, so that a sharded run can be held against a single one
     that rounds as a rank does:
 
-      * each layer of the UNet and the ControlNet that the mesh splits over
-        ``model`` (``sharding.tp_plan``) computes every model rank's part
-        and joins them as its collective would (output parts put back in
-        place; input parts' products summed in float32, rounded once);
-        the text cross-attention and trajectory attention run each model
-        rank's heads on their own;
+      * each layer of the UNet, ControlNet, VAE, text encoder and GMFlow
+        that the mesh splits over ``model`` (``sharding.tp_plan``) computes
+        every model rank's part and joins them as its collective would
+        (output parts, the split convolutions' included, put back in place;
+        the row forms' partial products summed in float32, rounded once, in
+        model-rank order); the text cross-attention, trajectory attention
+        and the text encoder's attention run each model rank's heads on
+        their own;
       * every ``Conv2d``, ``Dense``, ``GroupNorm32``, ``LayerNorm32`` and
-        text cross-attention of the UNet, VAE and ControlNet runs each data
-        rank's frames of a chunk-major batch on their own, in the rank's
-        row order, and trajectory attention computes each data rank's
-        query frames on their own.
+        text cross-attention of the UNet, VAE and ControlNet, and GMFlow as
+        a whole, run each data rank's frames of a chunk-major batch on their
+        own, in the rank's row order, and trajectory attention computes each
+        data rank's query frames on their own.
 
     Every other operation is per element, per frame or per attention row,
-    or sees the whole batch on a rank as well."""
+    or sees the whole batch on a rank as well (the text encoder runs every
+    prompt on every rank).  Yields ``[data rank]``: the data rank whose
+    frames run at the moment inside a layer or model cut by frames, else
+    ``[None]``."""
     from fresco_torch.attention import fresco_attention as fa
     from fresco_torch.core.comm import Mesh, local_frames
     from fresco_torch.models import layers
+    from fresco_torch.models.clip_text import CLIPAttention
     from fresco_torch.models.unet import CrossAttention
-    from fresco_torch.parallel.sharding import tp_plan
+    from fresco_torch.parallel.sharding import bundle_models, tp_plan
 
     inside = [0]  # the depth of batch splits: a layer inside a split one runs its piece whole
+    piece = [None]
     groups = lambda heads: model if heads % model == 0 else 1  # noqa: E731  (tp_plan's rule)
 
     def split_model(layer, mode, geglu):
@@ -70,21 +77,34 @@ def rank_sized_layers(bundle, data: int = 1, model: int = 1):
 
         return forward
 
-    def cross_heads(attn):
-        def forward(x, context):
-            q, k, v = attn.to_q(x), attn.to_k(context), attn.to_v(context)
+    def heads_apart(attn, attend, *extra):
+        """``attend(q, k, v, *extra, heads)`` on each model rank's heads."""
+        def run(q, k, v):
             g = groups(attn.heads)
             n = q.shape[-1] // g
-            parts = [attn.attend(*(t[..., r * n:(r + 1) * n].contiguous() for t in (q, k, v)), attn.heads // g)
-                     for r in range(g)]
-            return attn.to_out(torch.cat(parts, -1))
+            return torch.cat([attend(*(t[..., r * n:(r + 1) * n].contiguous() for t in (q, k, v)), *extra,
+                                     attn.heads // g) for r in range(g)], -1)
+
+        return run
+
+    def cross_heads(attn):
+        def forward(x, context):
+            return attn.to_out(heads_apart(attn, attn.attend)(attn.to_q(x), attn.to_k(context), attn.to_v(context)))
 
         return forward
 
-    def split_batch(fwd, chunk: int):
+    def text_heads(attn):
+        def forward(x, causal_mask):
+            qkv = attn.q_proj(x), attn.k_proj(x), attn.v_proj(x)
+            return attn.out_proj(heads_apart(attn, attn.attend, causal_mask)(*qkv))
+
+        return forward
+
+    def split_batch(fwd, chunk: int, out_chunk: int | None = None):
         """``fwd`` on each data rank's frames of a chunk-major batch, its
         rows where the rank holds them (a kernel may round a row by its
-        place in the batch), the outputs put back in chunk-major order."""
+        place in the batch), the outputs (``out_chunk`` chunks each, by
+        default ``chunk``) put back in chunk-major order."""
         if data == 1:
             return fwd
 
@@ -93,13 +113,18 @@ def rank_sized_layers(bundle, data: int = 1, model: int = 1):
             if inside[0] or n % (chunk * data):
                 return fwd(x, *a, **k)
             inside[0] += 1
+            outs = []
             try:  # every tensor argument of the same batch is cut alike (the text context)
                 cut = [[local_frames(t, Mesh(data, 1, r), chunk) for r in range(data)]
                        if isinstance(t, torch.Tensor) and t.shape[:1] == (n,) else [t] * data for t in (x, *a)]
-                outs = [fwd(*p, **k) for p in zip(*cut)]
+                for r, p in enumerate(zip(*cut)):
+                    piece[0] = r
+                    outs.append(fwd(*p, **k))
             finally:
                 inside[0] -= 1
-            return torch.stack([o.reshape(chunk, -1, *o.shape[1:]) for o in outs], 1).reshape(n, *outs[0].shape[1:])
+                piece[0] = None
+            oc = out_chunk or chunk
+            return torch.stack([o.reshape(oc, -1, *o.shape[1:]) for o in outs], 1).reshape(-1, *outs[0].shape[1:])
 
         return forward
 
@@ -123,23 +148,27 @@ def rank_sized_layers(bundle, data: int = 1, model: int = 1):
         m.forward = fwd
         patched.add(m)
 
-    for mod in (bundle.unet, bundle.controlnet):
+    for key, mod in bundle_models(bundle).items():
         mods = dict(mod.named_modules())
         if model > 1:
-            for name, (mode, geglu) in tp_plan(mod, model)[1].items():
+            for name, (mode, geglu) in tp_plan(mod, model, key)[1].items():
                 patch(mods[name], split_model(mods[name], mode, geglu))
         for m in mods.values():
             if isinstance(m, CrossAttention):
                 patch(m, split_batch(cross_heads(m), 2))
+            elif isinstance(m, CLIPAttention):
+                patch(m, text_heads(m))
     kinds = (layers.Conv2d, layers.Dense, layers.GroupNorm32, layers.LayerNorm32)
     # the UNet and the ControlNet run the CFG pair (chunk 2), the VAE frames
     for mod, chunk in ((bundle.unet, 2), (bundle.vae, 1), (bundle.controlnet, 2)):
         for m in mod.modules():
             if isinstance(m, kinds):
                 patch(m, split_batch(m.forward, chunk))
+    if bundle.gmflow is not None:  # frames in, forward then backward flows out
+        patch(bundle.gmflow, split_batch(bundle.gmflow.forward, 1, 2))
     traj, fa.trajectory_attention = fa.trajectory_attention, trajectory
     try:
-        yield
+        yield piece
     finally:
         fa.trajectory_attention = traj
         for m in patched:
@@ -160,6 +189,7 @@ def run_full_sampler(
     device: torch.device | str | None = None,
     widths: str | None = None,
     witness: tuple[int, int] | None = None,
+    report: dict | None = None,
 ) -> np.ndarray:
     """Translate one synthetic batch through the real pipeline and return
     the final latents (whole, on every rank) as numpy.
@@ -175,7 +205,8 @@ def run_full_sampler(
     tiny configs, head dim 4), on the card "bfloat16" and "small"
     (``small_bundle``: head dims 16 and 32, which the card's kernels
     take).  ``witness``: a single process that does a rank's arithmetic of
-    that ``(data, model)`` mesh (``rank_sized_layers``)."""
+    that ``(data, model)`` mesh (``rank_sized_layers``).  ``report``, where
+    given, receives the bundle's ``sharding.split_report`` under "split"."""
     from fresco_torch.core.config import FrescoConfig
     from fresco_torch.pipeline.runner import FrescoPipeline, frame_dtype, resolve_device
 
@@ -209,6 +240,10 @@ def run_full_sampler(
     pipe.bundle.saliency_fn = lambda imgs: torch.full(
         (imgs.shape[0], res // 8, res // 8, 1), 0.5, dtype=sal_dtype, device=pipe.device)
     say(f"[smoke {mesh_shape}] models built {time.time() - t0:.1f}s")
+    if report is not None:
+        from fresco_torch.parallel.sharding import split_report
+
+        report["split"] = split_report(pipe.bundle)
 
     rng = np.random.default_rng(seed)
     imgs = rng.integers(0, 255, (frames, res, res, 3)).astype(np.uint8)

@@ -30,8 +30,9 @@ A ``mesh_shape`` (data, model) of more than one rank runs SPMD, one
 process per rank (F23, ``parallel/sharding.py``): the process group must
 be initialized with ``prod(mesh_shape)`` ranks (``torchrun
 --nproc-per-node N``, or ``parallel.distributed.initialize``), else the
-pipeline raises before it builds a model.  Every rank reads the same
-inputs and gets the whole result; only rank 0 writes files.
+pipeline raises before it builds a model.  The UNet, ControlNet, VAE, text
+encoder and GMFlow are split over the mesh's ``model`` axis.  Every rank
+reads the same inputs and gets the whole result; only rank 0 writes files.
 ``dtype="float64"`` computes the UNet, ControlNet, VAE, flows, grams,
 latents and feature optimization in float64 (the sharding-validation
 mode; on the card the kernels refuse it and raise).
@@ -83,8 +84,11 @@ class ModelBundle:
     saliency_fn: Callable[[np.ndarray], torch.Tensor] | None = None
     # seconds spent on each loaded checkpoint: {model: {read, convert, to_device}}
     load_seconds: dict = dataclasses.field(default_factory=dict)
-    # the mesh whose model axis the UNet and ControlNet are split over (None: whole)
+    # the mesh whose model axis the five models are split over (None: whole)
     tp_mesh: Any = None
+    # a whole copy of a split ``gmflow``, for a rank that goes on alone
+    # (``FrescoPipeline.whole_gmflow``)
+    gmflow_whole: GMFlow | None = None
 
 
 def _no_detector(img: np.ndarray) -> np.ndarray:
@@ -404,17 +408,19 @@ def _make_mesh(config: FrescoConfig):
 
 
 def _shard_bundle(bundle: ModelBundle, mesh) -> None:
-    """Split the UNet and the ControlNet over ``mesh.model`` (once a bundle)."""
+    """Split the UNet, the ControlNet, the VAE, the text encoder and GMFlow
+    over ``mesh.model`` (once a bundle), as the JAX runner splits its
+    ``b.params``."""
     if bundle.tp_mesh is not None:
         if bundle.tp_mesh.shape != mesh.shape:
             raise ValueError(f"the bundle is split over mesh {bundle.tp_mesh.shape}, not {mesh.shape}")
         return
     if mesh.model == 1:
         return
-    from fresco_torch.parallel.sharding import shard_model_params
+    from fresco_torch.parallel.sharding import bundle_models, shard_model_params
 
-    shard_model_params(bundle.unet, mesh, "unet")
-    shard_model_params(bundle.controlnet, mesh, "controlnet")
+    for name, mod in bundle_models(bundle).items():
+        shard_model_params(mod, mesh, name)
     bundle.tp_mesh = mesh
 
 
@@ -487,11 +493,11 @@ class FrescoPipeline:
     def _phase(self, name: str):
         return phase_timer(self.phases, name, self.device if self.sync_phases else None)
 
-    def gmflow_flow_fn(self):
-        """The bundle's GMFlow as a flow function: frames rounded to
-        ``config.aux_dtype``, flows in float32 (float64 in the float64 mode,
-        as ``fresco_tpu/pipeline/runner.py:424-431``)."""
-        gm = self.bundle.gmflow
+    def gmflow_flow_fn(self, gm: GMFlow | None = None):
+        """GMFlow (the bundle's unless ``gm`` is given) as a flow function:
+        frames rounded to ``config.aux_dtype``, flows in float32 (float64 in
+        the float64 mode, as ``fresco_tpu/pipeline/runner.py:424-431``)."""
+        gm = self.bundle.gmflow if gm is None else gm
         if gm is None:
             raise RuntimeError("no flow source: the bundle has neither flow_fn nor gmflow")
         dt = aux_dtype(self.config)
@@ -731,6 +737,39 @@ class FrescoPipeline:
         self.translate_keyframes(frames, keys, verbose=verbose, on_batch=save)
         return keys
 
+    def whole_gmflow(self) -> GMFlow | None:
+        """The bundle's GMFlow with whole parameters: itself where the mesh
+        does not split it, else a copy put together from the model ranks'
+        parts (``sharding.whole_state_dict``) and kept in the bundle.  The
+        first call on a split bundle is a collective: every rank makes it
+        together, before a rank goes on alone (``cli.run_config`` does)."""
+        from fresco_torch.parallel.sharding import is_split, whole_state_dict
+
+        b = self.bundle
+        if b.gmflow is None or not is_split(b.gmflow):
+            return b.gmflow
+        if b.gmflow_whole is not None:
+            return b.gmflow_whole
+        sd = whole_state_dict(b.gmflow)
+        with torch.device("meta"):
+            gm = GMFlow(b.gmflow.cfg)
+        gm = gm.to_empty(device=self.device)
+        gm.load_state_dict(sd)
+        b.gmflow_whole = gm.eval().requires_grad_(False)
+        return b.gmflow_whole
+
+    def _alone_gmflow_fn(self):
+        """The flow function of a GMFlow that this rank can run alone."""
+        from fresco_torch.parallel.sharding import is_split
+
+        b = self.bundle
+        if b.gmflow is None or not is_split(b.gmflow):
+            return self.gmflow_flow_fn()
+        if b.gmflow_whole is None:
+            raise RuntimeError("GMFlow is split over the mesh's model axis, so one rank cannot run it alone: call "
+                               "FrescoPipeline.whole_gmflow() on every rank first (cli.run_config does)")
+        return self.gmflow_flow_fn(b.gmflow_whole)
+
     def consistency_flow_fn(self):
         """The flow source of the metrics and the CLI's propagation, in the
         JAX package's order (fresco_tpu/cli.py:50-60,
@@ -738,17 +777,19 @@ class FrescoPipeline:
         checkpoint exists at ``config.gmflow_path``, else OpenCV's
         Farneback.  With neither (the card's machine has no OpenCV), the
         bundle's GMFlow all the same, whose random weights give flows that
-        mean little; a line says so."""
+        mean little; a line says so.  Rank 0 calls it alone: over a mesh that
+        splits GMFlow, its GMFlow is the whole copy of ``whole_gmflow`` (it
+        raises where none was made)."""
         gpath = str(self.config.gmflow_path or "")
         if gpath and os.path.exists(gpath):
-            return self.gmflow_flow_fn()
+            return self._alone_gmflow_fn()
         if _have_cv2():
             from fresco_torch.utils.classic_flow import pairwise_flow_fn
 
             return pairwise_flow_fn()
         print(f"[fresco_torch] no GMFlow checkpoint at {gpath!r} and no OpenCV for Farneback: "
               "flows from the bundle's GMFlow, whose weights are random")
-        return self.gmflow_flow_fn()
+        return self._alone_gmflow_fn()
 
     def evaluate_consistency(self, frame_dir: str, max_frames: int = 32) -> dict:
         """Warp error and frame similarity of a frame directory (a centred

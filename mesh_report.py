@@ -3,12 +3,14 @@
 For each mesh shape, config_music's 8-keyframe batch (chip_smoke's phase-17
 settings, feature optimization off) runs once in this process as the
 witness (``parallel.smoke.rank_sized_layers``: a rank's arithmetic, no
-collective) and once in spawned ranks on the same card.  Every output of
-every module of the UNet, ControlNet and VAE through the first three UNet
-calls (the intra prep pass and both denoise steps) is fingerprinted by two
-exact integer sums of its bits, the witness's cut to rank 0's frames and
-channels; the report counts the calls that agree and lists the first that
-do not.  Then one convolution (``--probe``) is taken apart: its input and
+collective) and once in spawned ranks on the same card, with the bundle's
+GMFlow as the flow source.  Every output of every module of the text
+encoder, GMFlow, the UNet, ControlNet and VAE through the first three UNet
+calls (the prep, with the intra pass, and both denoise steps) is
+fingerprinted by two exact integer sums of its bits, the witness's cut to
+rank 0's frames and channels (inside GMFlow, which the witness runs a data
+rank's frames at a time, its calls on rank 0's frames); the report counts
+the calls that agree and lists the first that do not.  Then one convolution (``--probe``) is taken apart: its input and
 output in both runs, and the convolution recomputed here on rank 0's input
 fresh, on the witness's whole batch, and on the witness's contiguous half
 (the rows of another rank's layout), so that a kernel that rounds a row by
@@ -49,21 +51,23 @@ def fingerprint(t: torch.Tensor) -> tuple[int, int]:
     return int(v.sum()), int((v * w).sum())
 
 
-def _record(bundle, shape, witness: bool, probe: str, dumps: dict):
-    """Forward hooks on every module of the UNet, ControlNet and VAE (those
-    inside a text cross-attention excepted: the witness cuts its batch
-    around them); returns the record and the hooks' remover."""
+def _record(bundle, shape, witness: bool, probe: str, dumps: dict, piece: list):
+    """Forward hooks on every module of the five models (those inside a
+    text cross-attention excepted: the witness cuts its batch around them);
+    ``piece``: the witness's ``[data rank]`` of the frames running inside a
+    model cut by frames.  Returns the record and the hooks' remover."""
     from fresco_torch.core.comm import Mesh, local_frames
     from fresco_torch.models import layers
     from fresco_torch.models.unet import CrossAttention
-    from fresco_torch.parallel.sharding import tp_plan
+    from fresco_torch.parallel.sharding import bundle_models, tp_plan
 
     d, m = shape
     rec, state = [], {"unet": 0}
+    models = bundle_models(bundle)
     forms = {}
     if witness and m > 1:
-        for key, mod in (("unet", bundle.unet), ("controlnet", bundle.controlnet)):
-            forms.update({f"{key}.{n}": f for n, f in tp_plan(mod, m)[1].items()})
+        for key, mod in models.items():
+            forms.update({f"{key}.{n}": f for n, f in tp_plan(mod, m, key)[1].items()})
 
     def cut(name, t):  # the witness's output as rank 0 holds it
         if not witness:
@@ -72,14 +76,16 @@ def _record(bundle, shape, witness: bool, probe: str, dumps: dict):
             t = t.index_select(-1, layers.column_part(t.shape[-1], m, 0, forms[name][1]).to(t.device))
         elif m > 1 and name.endswith("ff_geglu") and f"{name}.proj" in forms:
             t = t[..., :t.shape[-1] // m]
-        chunk = 2 if name.startswith(("unet", "controlnet")) else 1
+        if name.startswith("text") or piece[0] is not None:
+            return t  # every prompt on every rank; inside GMFlow, rank 0's frames already
+        chunk = 2 if name.startswith(("unet", "controlnet")) or name == "gmflow" else 1
         if d > 1 and t.shape[0] % (chunk * d) == 0:
             t = local_frames(t, Mesh(d, 1, 0), chunk)
         return t
 
     def hook(name):
         def fn(mod, args, out):
-            if state["unet"] >= N_UNET_CALLS:
+            if state["unet"] >= N_UNET_CALLS or (witness and piece[0] not in (None, 0)):
                 return
             for i, o in enumerate(out if isinstance(out, (tuple, list)) else (out,)):
                 if isinstance(o, torch.Tensor) and o.is_floating_point():
@@ -91,7 +97,7 @@ def _record(bundle, shape, witness: bool, probe: str, dumps: dict):
         return fn
 
     handles = []
-    for key, mod in (("unet", bundle.unet), ("controlnet", bundle.controlnet), ("vae", bundle.vae)):
+    for key, mod in models.items():
         named = dict(mod.named_modules())
         inner = {f"{n}.{c}" for n, sub in named.items() if isinstance(sub, CrossAttention)
                  for c, _ in sub.named_modules() if c}
@@ -108,20 +114,20 @@ def _record(bundle, shape, witness: bool, probe: str, dumps: dict):
 
 def run(dev, mesh_shape, witness_shape, probe: str, tiny: bool, res: int):
     """One opt-off batch on this process's mesh (or as the witness of
-    ``witness_shape``): (record, latents, the probe's tensors)."""
+    ``witness_shape``), GMFlow the flow source: (record, latents, the
+    probe's tensors)."""
     from fresco_torch.parallel.smoke import rank_sized_layers
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
 
     cfg = cs.music_config(mesh_shape=tuple(mesh_shape), resolution=res, use_fresco_opt=False, **cs.MESH_STEPS)
     bundle = build_models(cfg, tiny=tiny, seed=0, device=dev, random_aux_weights=True)
-    frames, flows, detector = cs.make_inputs(0, cs.MESH_FRAMES, res)
-    bundle.flow_fn = cs.known_flow_fn(frames, flows, dev)
+    frames, _, detector = cs.make_inputs(0, cs.MESH_FRAMES, res)
     bundle.detector = detector
     pipe = FrescoPipeline(cfg, bundle)
     prompts, negs = cs.prompts_for(cfg, cs.MESH_FRAMES)
     dumps: dict = {}
-    rec, remove = _record(bundle, witness_shape or mesh_shape, witness_shape is not None, probe, dumps)
-    with rank_sized_layers(bundle, *witness_shape) if witness_shape else contextlib.nullcontext():
+    with rank_sized_layers(bundle, *witness_shape) if witness_shape else contextlib.nullcontext([None]) as piece:
+        rec, remove = _record(bundle, witness_shape or mesh_shape, witness_shape is not None, probe, dumps, piece)
         latents, _ = pipe._translate_batch(frames, prompts, negs, None, False)
     remove()
     return rec, latents.float().cpu(), dumps

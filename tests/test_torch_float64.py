@@ -19,9 +19,13 @@ mode keeps two float32 pieces: its spatial-loss gradient accumulates the
 gram and its apply with ``preferred_element_type=float32`` into a float32
 buffer (``fresco_tpu/diffusion/guidance.py:394-405``), and its dense
 reference gram likewise (``:545-550``).  Those bound the agreement
-(measured: 6.4e-7).  The port's float32 batch, on the same inputs, lies
-farther from the JAX float64 batch than 10x that bound (measured: 0.25):
-the float64 mode is what agrees.
+(measured: 5.0e-7 with torch 2.13 on the CPU at 1, 6 and 8 threads).  The
+port's float32 batch, on the same inputs, lies farther from the JAX float64
+batch than ``ATOL`` and than 10x the float64 batch's own distance
+(measured: 3.47e-5 at 1 thread, 2.86e-5 at 6, 5.56e-5 at 8; how far depends
+on the build's float32 summation order, since a float32 run may or may not
+flip a sign of the feature optimization's L1 losses): the float64 mode is
+what agrees.
 """
 import numpy as np
 import torch
@@ -111,4 +115,6 @@ def test_float64_batch_matches_jax_x64(monkeypatch):
     np.testing.assert_allclose(tlat.numpy(), jlat, atol=ATOL, rtol=0)
     np.testing.assert_allclose(trec.numpy(), jrec, atol=ATOL, rtol=0)
     assert out["float32"][0].dtype == torch.float32
-    assert np.abs(out["float32"][0].double().numpy() - jlat).max() > 10 * ATOL
+    d64 = np.abs(tlat.numpy() - jlat).max()
+    d32 = np.abs(out["float32"][0].double().numpy() - jlat).max()
+    assert d32 > ATOL and d32 > 10 * d64, (d32, d64)

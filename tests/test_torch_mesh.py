@@ -14,14 +14,19 @@ gradient, the gram gradient, ``warp_and_fuse``, the tiny UNet forward and
 the UNet training step's gradients and parameters) to 1e-10 absolute:
 they differ from the whole by summation order only (measured: ~1e-15).
 ``run_full_sampler`` in float64 within atol = rtol = 1e-5 of the (1, 1)
-run, as the JAX dry run holds it (``__graft_entry__.py:160-169``); in
+run, as the JAX dry run holds it (``__graft_entry__.py:160-169``): the text
+encoder and GMFlow compute in float32 in every mode, and split over
+``model`` they round otherwise (read: 2.35e-7 in the (2, 2) dry run); in
 bf16 within 1e-6 relative of one process doing a rank's arithmetic
 (``smoke.rank_sized_layers``; read: bit for bit).  The
 GMFlow step computes in float32 (``models/gmflow``): its loss to 1e-5
 relative and its summed gradients to 1e-5 of the model's largest
 gradient (summation order over the ranks; the downsample biases, which the
 instance norm after them cancels, have gradients of rounding noise,
-~1e-9).  The loader's slices and the training script's ``--data-par 2``
+~1e-9).  The VAE and the text encoder split over ``model`` in float64 to 1e-5 of
+the whole model's outputs, GMFlow's float32 flows to 1e-5 of the largest
+flow.  The
+loader's slices and the training script's ``--data-par 2``
 batches are exact; its parameters after two steps are held to
 2·(lr_0 + lr_1), the most AdamW moves an element whose gradient is
 rounding noise (the bound of ``tests/test_torch_flow_train.py``), and its
@@ -169,6 +174,81 @@ def _loader(mesh):
                                              device="cpu")]
 
 
+def _three_models(mesh):
+    """The tiny VAE (encoder moments, decoder) and text encoder in float64
+    and GMFlow (float32, as it always computes) on seeded inputs, split over
+    ``mesh.model`` (``None``: whole): ({output: tensor}, {model: parameter
+    bytes on this rank})."""
+    from fresco_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from fresco_torch.models.gmflow import GMFlow, GMFlowConfig
+    from fresco_torch.models.layers import init_flax_default_
+    from fresco_torch.models.vae import AutoencoderKL, VAEConfig
+    from fresco_torch.parallel.sharding import shard_model_params
+
+    g = torch.Generator().manual_seed(11)
+    mods = {"vae": init_flax_default_(AutoencoderKL(VAEConfig.tiny()), g).double(),
+            "text": init_flax_default_(CLIPTextEncoder(CLIPTextConfig.tiny()), g).double(),
+            "gmflow": init_flax_default_(GMFlow(GMFlowConfig.tiny()), g)}
+    x = torch.rand(2, 32, 32, 3, generator=g, dtype=torch.float64) * 2 - 1
+    z = torch.randn(2, 4, 4, 4, generator=g, dtype=torch.float64)
+    ids = torch.randint(0, CLIPTextConfig.tiny().vocab_size, (2, 77), generator=g)
+    img0, img1 = torch.rand(1, 32, 48, 3, generator=g) * 255, torch.rand(1, 32, 48, 3, generator=g) * 255
+    m = mesh or comm.Mesh()
+    nbytes = {}
+    for name, mod in mods.items():
+        if m.model > 1:
+            shard_model_params(mod, m, name)
+        nbytes[name] = sum(p.numel() * p.element_size() for p in mod.parameters())
+    with torch.no_grad():
+        out = {"vae_moments": torch.cat(mods["vae"].encode_moments(x), -1), "vae_decode": mods["vae"].decode(z),
+               "text": mods["text"](ids), "gmflow": mods["gmflow"](img0, img1)}
+    return out, nbytes
+
+
+RANK0_LIMIT_S = 60  # rank 0's lone flow call; a wait on a collective no other rank joins would never end
+
+
+def _flow_pair():
+    g = torch.Generator().manual_seed(13)
+    return torch.rand(2, 64, 64, 3, generator=g) * 255, torch.rand(2, 64, 64, 3, generator=g) * 255
+
+
+def _rank0_flows(rank, shape):
+    """Rank 0's flow source over a mesh that splits GMFlow: before the
+    ranks put a whole GMFlow together it raises; after, rank 0 alone runs it
+    (no OpenCV assumed, so ``consistency_flow_fn`` picks GMFlow) within
+    RANK0_LIMIT_S while the other ranks have returned."""
+    import threading
+    import time
+
+    from fresco_torch.core.config import FrescoConfig
+    from fresco_torch.pipeline import runner
+
+    pipe = runner.FrescoPipeline(FrescoConfig(mesh_shape=shape, resolution=64), tiny=True, device="cpu")
+    out = {}
+    have, runner._have_cv2 = runner._have_cv2, lambda: False
+    try:
+        if rank == 0:
+            try:
+                pipe.consistency_flow_fn()
+                out["before_join"] = "returned"
+            except RuntimeError as e:
+                out["before_join"] = str(e)
+        pipe.whole_gmflow()
+        if rank != 0:
+            return out
+        done = {}
+        t = threading.Thread(target=lambda: done.update(flows=pipe.consistency_flow_fn()(*_flow_pair())),
+                             daemon=True)
+        t0 = time.perf_counter()
+        t.start()
+        t.join(RANK0_LIMIT_S)
+        out.update(flows=done.get("flows"), seconds=time.perf_counter() - t0)
+    finally:
+        runner._have_cv2 = have
+    return out
+
+
 def _reuse_decided_by_rank_0(rank, shape):
     """``translate_keyframe_files(reuse=True)`` where each rank has a
     ``save_path`` of its own (hosts without a shared disk) and only rank
@@ -215,6 +295,9 @@ def _world(rank, dev, shape):
            "model_rank": mesh.model_rank}
     out["gmflow"] = _gmflow_step(mesh)
     out["loader"] = _loader(mesh)
+    if shape[1] > 1:
+        out["models"] = _three_models(mesh)
+        out["rank0"] = _rank0_flows(rank, shape)
     if shape == (2, 1):
         out["reuse_keys"] = _reuse_decided_by_rank_0(rank, shape)
         run = train_gmflow.main(SCRIPT_ARGS + ["--data-par", "2"])
@@ -238,11 +321,12 @@ def whole():
     torch.set_num_threads(1)  # as each rank runs
     try:
         witness = {shape: run_full_sampler((1, 1), dtype="bfloat16", witness=shape, **SAMPLER_KW) for shape in SHAPES}
+        models = _three_models(None)
     finally:
         torch.set_num_threads(threads)
     return {"inp": inp, "pieces": _pieces(inp, None), "unet": _unet_forward(inp, None), "step": _unet_step(inp, None),
             "sampler": run_full_sampler((1, 1), **SAMPLER_KW), "gmflow": _gmflow_step(None), "loader": _loader(None),
-            "bf16_witness": witness}
+            "bf16_witness": witness, "models": models}
 
 
 def _mesh(shape, out):
@@ -290,10 +374,55 @@ def test_tiny_unet_forward_sharded_equal_single(worlds, whole, shape):
         _close(out["unet"], comm.local_frames(whole["unet"], _mesh(shape, out)), atol=ATOL)
 
 
+MODEL_SHAPES = [s for s in SHAPES if s[1] > 1]
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=str)
+def test_vae_text_gmflow_split_equal_whole(worlds, whole, shape):
+    """The VAE (split convolutions gathered before each GroupNorm, the
+    single-head mid attention whole with its ``to_out`` in the row form)
+    and the text encoder (whole heads a rank, row-parallel ``out_proj`` and
+    ``mlp_fc2``) in float64 within 1e-5 of the whole model's outputs (read:
+    3.4e-15); GMFlow (split convolutions, ``merge`` and ``mlp_2`` in their
+    row forms), which computes in float32 only, within 1e-5 of its largest
+    flow (read: 2.05e-5 px of 16.9 px, ten float32 ulps there); each
+    model's parameter bytes on a rank below the whole's."""
+    want, whole_bytes = whole["models"]
+    for out in worlds[shape]:
+        got, nbytes = out["models"]
+        for key, ref in want.items():
+            if key == "gmflow":
+                assert (got[key] - ref).abs().max() <= 1e-5 * ref.abs().max(), key
+            else:
+                _close(got[key], ref, atol=1e-5)
+        for name, n in whole_bytes.items():
+            assert nbytes[name] < n, (name, nbytes[name], n)
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=str)
+def test_rank0_alone_gets_a_whole_gmflow(worlds, shape):
+    """Over a mesh that splits GMFlow, ``consistency_flow_fn`` on rank 0
+    alone raises until the ranks have put a whole GMFlow together
+    (``whole_gmflow``); then it returns, within RANK0_LIMIT_S, the flows of
+    the same GMFlow run whole in one process."""
+    from fresco_torch.core.config import FrescoConfig
+    from fresco_torch.pipeline import runner
+
+    rank0 = worlds[shape][0]["rank0"]
+    assert "whole_gmflow" in rank0["before_join"]
+    assert rank0["flows"] is not None and rank0["seconds"] < RANK0_LIMIT_S
+    single = runner.FrescoPipeline(FrescoConfig(resolution=64), tiny=True, device="cpu")
+    with torch.no_grad():
+        want = single.gmflow_flow_fn()(*_flow_pair())
+    _close(rank0["flows"], want, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_full_sampler_sharded_equal_single(worlds, whole, shape):
-    """run_full_sampler in float64: every rank's whole latents within
-    atol = rtol = 1e-5 of the (1, 1) run."""
+    """run_full_sampler in float64, with the bundle's GMFlow as the flow
+    source (split over ``model`` with the VAE, the text encoder, the UNet
+    and the ControlNet): every rank's whole latents within atol = rtol =
+    1e-5 of the (1, 1) run."""
     for out in worlds[shape]:
         np.testing.assert_allclose(out["sampler"], whole["sampler"], atol=1e-5, rtol=1e-5)
 
@@ -353,13 +482,14 @@ def test_gmflow_step_and_loader_sharded(worlds, whole, shape):
 
 def test_dryrun_multichip_on_the_cpu():
     """The dry run's three checks over 4 spawned ranks on a (2, 2) mesh: the
-    training step and the float64 sampler sharded == single, the
-    wave == serial (it raises where one fails)."""
+    training step and the float64 sampler sharded == single (the sampler to
+    1e-5: its float32 text encoder and GMFlow are split), the wave ==
+    serial (it raises where one fails)."""
     from fresco_torch.parallel.dryrun import dryrun_multichip
 
     out = dryrun_multichip(4, "cpu", verbose=False)
     assert out["mesh"] == (2, 2) and len(out["ranks"]) == 4
-    assert max(r["latent_err"] for r in out["ranks"]) < 1e-10 and out["wave"]["max_abs"] == 0.0
+    assert max(r["latent_err"] for r in out["ranks"]) < 1e-5 and out["wave"]["max_abs"] == 0.0
 
 
 def test_train_gmflow_data_par_2_equals_data_par_1(worlds):
