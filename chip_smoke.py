@@ -949,7 +949,8 @@ def patch_eval_launcher(args, patch: int = 5, fn=None):
     from fresco_torch import kernels
     from fresco_torch.propagate.patch_eval import _kernel_args
 
-    c_args, nnf_out, e_out, _, keep = _kernel_args(*args, patch=patch)
+    card, c_args, nnf_out, e_out, _, keep = _kernel_args(*args, patch=patch)
+    c_args = (*c_args, torch.cuda.current_stream(card).cuda_stream)
     fn = fn or kernels.load().fresco_patch_eval
 
     def launch():
@@ -1714,30 +1715,16 @@ CLIP_MAX_ABS = 1e-4         # on the unit-norm embeddings, float32 (no TF32) aga
 CARD = "card not read"      # nvidia-smi's name and power limit, set in main
 
 
-def phase_waves(seed: int, dev, hw=PROP_HW):
-    """Interval waves on one card: ``_synthesize_chain_wave`` over
-    [dev] * 4 against ``_synthesize_chain_pair`` per interval, bit for bit;
-    ``blend_video_frames(n_devices=1)`` on the same clip as the serial
-    stage.  Returns the walls."""
-    from fresco_torch.propagate.gather import gather_rows
-    from fresco_torch.propagate.patch_eval import patch_eval
-    from fresco_torch.propagate.patchmatch import PatchMatchConfig
-    from fresco_torch.propagate.video_blend import (
-        _FlowCache, _stream_seed, _synthesize_chain_pair, _synthesize_chain_wave, blend_video_frames)
+def wave_inputs(seed: int, dev, hw=PROP_HW):
+    """Phase 13's clip on ``dev``: WAVE_KEYS[-1] + 1 seeded frames at
+    ``hw``, their styled truth, the function of their known flows, and the
+    wave of its intervals as ``_synthesize_chain_wave`` takes it."""
+    from fresco_torch.propagate.video_blend import _FlowCache
 
     keys = list(WAVE_KEYS)
-    n = keys[-1] + 1
-    frames, flows, _ = make_inputs(seed, n, hw)
+    frames, flows, _ = make_inputs(seed, keys[-1] + 1, hw)
     truth = [style_of(f) for f in frames]
     flow_fn = pair_flow_fn(frames, flows, dev)
-    _sync(dev)
-    t0 = time.perf_counter()
-    out = blend_video_frames(dict(enumerate(frames)), {k: truth[k] for k in keys}, keys, flow_fn=flow_fn,
-                             n_devices=1, device=dev)
-    _sync(dev)
-    wall_blend = time.perf_counter() - t0
-    psnr = _psnr(out, truth, [i for i in range(n) if i not in keys])
-
     fc = _FlowCache(flow_fn, dev)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
     wave = []
@@ -1747,33 +1734,72 @@ def phase_waves(seed: int, dev, hw=PROP_HW):
         flows_pair = (fc.get_batch(seq, js, [f"f{beg}_{j}" for j in js]),
                       fc.get_batch(seq[::-1], js, [f"b{end}_{j}" for j in js]))
         wave.append((seq_i, (t(truth[beg]), t(truth[end])), (seq, seq[::-1]), flows_pair))
+    return frames, truth, flow_fn, wave
+
+
+def phase_waves(seed: int, dev, hw=PROP_HW, devices=None):
+    """Interval waves: ``_synthesize_chain_wave`` over ``devices`` (default
+    [dev] * WAVE_DEVICES, one card; a list of distinct cards runs a chain on
+    each, on a thread of its own) against ``_synthesize_chain_pair`` per
+    interval on ``dev``, bit for bit; ``blend_video_frames(n_devices=1)`` on
+    the same clip as the serial stage.  Returns the walls, the wave's
+    row_gather and patch_eval launches and peak memory on each card, and
+    (``"serial"``) the serial chains' outputs, which a caller may hold
+    other runs to."""
+    from fresco_torch import kernels
+    from fresco_torch.propagate.gather import gather_rows
+    from fresco_torch.propagate.patch_eval import patch_eval
+    from fresco_torch.propagate.patchmatch import PatchMatchConfig
+    from fresco_torch.propagate.video_blend import (
+        _stream_seed, _synthesize_chain_pair, _synthesize_chain_wave, blend_video_frames)
+
+    keys = list(WAVE_KEYS)
+    n = keys[-1] + 1
+    frames, truth, flow_fn, wave = wave_inputs(seed, dev, hw)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = blend_video_frames(dict(enumerate(frames)), {k: truth[k] for k in keys}, keys, flow_fn=flow_fn,
+                             n_devices=1, device=dev)
+    _sync(dev)
+    wall_blend = time.perf_counter() - t0
+    psnr = _psnr(out, truth, [i for i in range(n) if i not in keys])
     cfg = PatchMatchConfig()
     _sync(dev)
     t0 = time.perf_counter()
     serial = {w[0]: _synthesize_chain_pair(*w[1:], cfg, _stream_seed(seed, w[0])) for w in wave}
     _sync(dev)
     wall_serial = time.perf_counter() - t0
-    gather_rows.launches = 0
-    patch_eval.launches = 0
+    devices = [torch.device(d) for d in devices] if devices is not None else [dev] * WAVE_DEVICES
+    cards = sorted({d.index for d in devices if d.type == "cuda"})
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    waved = _synthesize_chain_wave(wave, cfg, seed, [dev] * WAVE_DEVICES)
-    _sync(dev)
+    waved = _synthesize_chain_wave(wave, cfg, seed, devices)
+    for c in cards:
+        torch.cuda.synchronize(c)
     wall_wave = time.perf_counter() - t0
     launches = {"row_gather": gather_rows.launches, "patch_eval": patch_eval.launches}
-    same = all(torch.equal(a, b) for s in serial for d in range(2) for part in range(2)
+    by_card = {c: {n: w.launches_by_card.get(c, 0)
+                   for n, w in (("row_gather", gather_rows), ("patch_eval", patch_eval))} for c in cards}
+    peaks = {c: torch.cuda.max_memory_allocated(c) / 2**30 for c in cards}
+    same = all(torch.equal(a, b.to(a.device)) for s in serial for d in range(2) for part in range(2)
                for a, b in zip(serial[s][d][part], waved[s][d][part]))
     same = same and all(len(serial[s][d][p]) == len(waved[s][d][p]) for s in serial for d in range(2) for p in range(2))
     print(f"waves: {n} frames {hw[0]}x{hw[1]}, keys {keys}; blend_video_frames(n_devices=1) wall {wall_blend:.2f} s, "
           f"PSNR vs truth {psnr:.3f} dB; chains: serial (_synthesize_chain_pair per interval) {wall_serial:.2f} s, "
-          f"wave over [{dev}] * {WAVE_DEVICES} {wall_wave:.2f} s, "
-          f"bit-equal {same}, wave launches {launches} ({CARD})")
+          f"wave over [{', '.join(map(str, devices))}] {wall_wave:.2f} s, "
+          f"bit-equal {same}, wave launches {launches}, by card {by_card}, peak GiB by card "
+          + ", ".join(f"{c} {p:.2f}" for c, p in peaks.items()) + f" ({CARD})")
     if not same:
         fail("waves: the wave's chains differ from the serial chain pairs")
     if not psnr >= PROP_PSNR_FLOOR:
         fail(f"waves: blend_video_frames PSNR {psnr} below {PROP_PSNR_FLOOR}")
-    if dev.type == "cuda" and min(launches.values()) <= 0:
-        fail(f"waves did not launch every propagation kernel: {launches}")
-    return {"blend_serial_s": wall_blend, "chains_serial_s": wall_serial, "chains_wave_s": wall_wave}
+    if dev.type == "cuda" and min(n for c in by_card.values() for n in c.values()) <= 0:
+        fail(f"waves did not launch every propagation kernel on every card: {by_card}")
+    return {"blend_serial_s": wall_blend, "chains_serial_s": wall_serial, "chains_wave_s": wall_wave,
+            "bit_equal": same, "psnr_db": psnr, "devices": [str(d) for d in devices], "launches": launches,
+            "launches_by_card": by_card, "peak_gib_by_card": peaks, "serial": serial}
 
 
 def phase_ebsynth(seed: int, dev, hw=PROP_HW):
@@ -2655,7 +2681,7 @@ def phase_webui(seed: int, dev, tiny: bool = False, n: int = WEBUI_FRAMES, res: 
 
 
 # ---------------------------------------------------------------- mesh
-MESH_SHAPES = ((2, 1), (1, 2), (2, 2))   # (data, model): ranks spawned on cuda:0, over gloo
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))   # (data, model); on one card every rank shares cuda:0, over gloo
 MESH_FRAMES = 8
 # config_music's settings with the denoise loop cut from 20 steps (17 after
 # warmup) to 4 (2 after warmup): the comparison needs every mechanism, not
@@ -2683,16 +2709,19 @@ MESH_LATENT_REL = 0.12            # optimization off: latents vs single, relativ
 MESH_PSNR_FLOOR = 20.0            # optimization on: decoded frames vs single, dB
 MESH_TRAIN_LOSS_REL = 1e-3
 MESH_TRAIN_GRAD_REL = 5e-2   # max |d| / max |g|, as phase 15's kernel-vs-naive step
+MESH_TIMEOUT_S = 900         # a world's rendezvous and each of its collectives
 
 
-def _mesh_batches(seed: int, dev, mesh_shape, tiny: bool = False, res: int = 512, witness=None) -> dict:
-    """config_music's batch of MESH_FRAMES keyframes (MESH_STEPS) on this
-    process's mesh, the bundle's GMFlow the flow source, with feature
-    optimization off and then on: the latents of the first, the decoded
-    frames of the second, the wall, peak memory and kernel launches of each,
-    and each model's split layers and parameter bytes on this rank
-    (``sharding.split_report``).  ``witness``: the single process doing a
-    rank's arithmetic of that (data, model) mesh (``smoke.rank_sized_layers``)."""
+def _mesh_batches(seed: int, dev, mesh_shape, tiny: bool = False, res: int = 512, witness=None,
+                  steps=MESH_STEPS) -> dict:
+    """config_music's batch of MESH_FRAMES keyframes (its denoise loop at
+    ``steps``) on this process's mesh, the bundle's GMFlow the flow source,
+    with feature optimization off and then on: the latents of the first,
+    the decoded frames of the second, the wall, peak memory and kernel
+    launches of each, and each model's split layers and parameter bytes on
+    this rank (``sharding.split_report``).  ``witness``: the single process
+    doing a rank's arithmetic of that (data, model) mesh
+    (``smoke.rank_sized_layers``)."""
     import contextlib
 
     from fresco_torch import kernels
@@ -2700,7 +2729,7 @@ def _mesh_batches(seed: int, dev, mesh_shape, tiny: bool = False, res: int = 512
     from fresco_torch.parallel.smoke import rank_sized_layers
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
 
-    cfg = music_config(mesh_shape=tuple(mesh_shape), resolution=res, use_fresco_opt=False, **MESH_STEPS)
+    cfg = music_config(mesh_shape=tuple(mesh_shape), resolution=res, use_fresco_opt=False, **steps)
     t0 = time.perf_counter()
     bundle = build_models(cfg, tiny=tiny, seed=seed, device=dev, random_aux_weights=True)
     frames, _, detector = make_inputs(seed, MESH_FRAMES, res)
@@ -2757,8 +2786,38 @@ def _mesh_train(seed: int, dev, mesh=None, cfg=None, res: int = 512) -> dict:
     return {"loss": loss, "grads": grads, "step_s": time.perf_counter() - t0, "peak_gib": _peak_gib(dev)}
 
 
-def _mesh_rank(rank: int, dev, shape, seed: int, tiny: bool, res: int, card: str, train_cfg, train_res):
-    """One spawned rank of phase 17."""
+def rank_where(dev) -> dict:
+    """This rank's backend, card index and the card's name, as read."""
+    import torch.distributed as dist
+
+    cuda = dev.type == "cuda"
+    return {"backend": dist.get_backend(), "card": dev.index if cuda else None,
+            "name": torch.cuda.get_device_name(dev) if cuda else "cpu"}
+
+
+def check_where(label: str, where: list[dict], dev) -> str:
+    """Fail unless rank r of a world lies on card r modulo the visible
+    cards with the backend that ``choose_backend`` gives such a world, as
+    ``launch`` deals them; returns the line that says where the ranks ran."""
+    from fresco_torch.parallel.distributed import choose_backend
+
+    cuda = dev.type == "cuda"
+    n_cards = torch.cuda.device_count() if cuda else 0
+    backend = choose_backend(dev.type, len(where), n_cards)[0]
+    for r, w in enumerate(where):
+        card = r % n_cards if cuda else None
+        if w["backend"] != backend or w["card"] != card:
+            fail(f"{label} rank {r}: {w['backend']} on card {w['card']}, expected {backend} on card {card}")
+    if not cuda:
+        return f"{len(where)} ranks over {backend} on the CPU"
+    return (f"{len(where)} ranks over {backend}: " + ", ".join(f"rank {r} on card {w['card']} ({w['name']})"
+                                                             for r, w in enumerate(where))
+            + ("; the ranks share a card" if len(where) > n_cards else "; a card a rank"))
+
+
+def _mesh_rank(rank: int, dev, shape, seed: int, tiny: bool, res: int, card: str, train_cfg, train_res,
+               steps=MESH_STEPS):
+    """One spawned rank of phase 17: where it runs, then its batches."""
     global CARD
     CARD = card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2768,7 +2827,7 @@ def _mesh_rank(rank: int, dev, shape, seed: int, tiny: bool, res: int, card: str
 
     if dev.type == "cuda":
         kernels.load()
-    out = _mesh_batches(seed, dev, shape, tiny, res)
+    out = {"where": rank_where(dev), **_mesh_batches(seed, dev, shape, tiny, res, steps=steps)}
     if tuple(shape) == (2, 1):
         out["train"] = _mesh_train(seed, dev, make_mesh(*shape), train_cfg, train_res)
     return out
@@ -2794,41 +2853,44 @@ def _psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
 
 
-def mesh_probe(dev) -> dict:
+def mesh_probe(dev, world: int = 2) -> dict:
     """What this machine's torch.distributed offers: the backends, NCCL's
-    version, and whether gloo all-gathers, all-reduces and broadcasts CUDA
-    tensors itself, with the right values (two spawned ranks on the card);
-    then a gather of a 2x4x4096x320 bf16 tensor (cross-frame attention's K
-    at 512 px) handed to gloo as it lies against one staged through host
-    memory by hand, timed in turns."""
+    version and, in ``world`` spawned ranks dealt over the visible cards,
+    each rank's backend and card, whether the backend all-gathers,
+    all-reduces and broadcasts CUDA tensors itself with the right values,
+    and a gather of a 2x4x4096x320 bf16 tensor (cross-frame attention's K
+    at 512 px) from every rank, handed to the backend as it lies; where the
+    ranks share a card (gloo), also one staged through host memory by hand,
+    timed in turns (NCCL takes no host tensor)."""
     import torch.distributed as dist
 
     from fresco_torch.parallel.distributed import launch
 
     info = {"nccl": dist.is_nccl_available(), "gloo": dist.is_gloo_available(),
-            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())) if dev.type == "cuda" else None}
-    info["gloo_cuda"] = launch(_probe_rank, 2, device=dev.type, timeout_s=120)[0]
-    print(f"mesh probe: {info} ({CARD})")
+            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())) if dev.type == "cuda" else None,
+            "world": world}
+    info["ranks"] = launch(_probe_rank, world, world, device=dev.type, timeout_s=120)
+    print(f"mesh probe, {world} ranks: {info} ({CARD})")
     return info
 
 
-def _probe_rank(rank: int, dev) -> dict:
+def _probe_rank(rank: int, dev, world: int) -> dict:
     import torch.distributed as dist
 
     from fresco_torch.core import comm
 
-    out = {"backend": dist.get_backend()}
+    out = rank_where(dev)
     x = torch.full((4,), float(rank + 1), device=dev)
 
     def gather():
-        parts = [torch.empty_like(x) for _ in range(2)]
+        parts = [torch.empty_like(x) for _ in range(world)]
         dist.all_gather(parts, x)
-        return torch.cat(parts), torch.tensor([1.0] * 4 + [2.0] * 4)
+        return torch.cat(parts), torch.tensor([float(r + 1) for r in range(world) for _ in range(4)])
 
     def reduce():
         y = x.clone()
         dist.all_reduce(y)
-        return y, torch.full((4,), 3.0)
+        return y, torch.full((4,), world * (world + 1) / 2)
 
     def bcast():
         y = x.clone()
@@ -2845,19 +2907,15 @@ def _probe_rank(rank: int, dev) -> dict:
         return out
     group = dist.group.WORLD
     k = torch.randn(2, 4, 4096, 320, device=dev).to(torch.bfloat16)
-
-    def staged():
-        return comm.all_gather_cat(k.cpu(), group, 2).to(dev)
-
-    def native():
-        return comm.all_gather_cat(k, group, 2)
-
-    if not torch.equal(staged(), native()):
-        out["gather_ms"] = "native and staged gathers differ"
-        return out
-    ms = {"native": [], "staged": []}
+    fns = {"native": lambda: comm.all_gather_cat(k, group, world)}
+    if out["backend"] == "gloo":
+        fns["staged"] = lambda: comm.all_gather_cat(k.cpu(), group, world).to(dev)
+        if not torch.equal(fns["staged"](), fns["native"]()):
+            out["gather_ms"] = "native and staged gathers differ"
+            return out
+    ms = {name: [] for name in fns}
     for _ in range(5):
-        for name, fn in (("native", native), ("staged", staged)):
+        for name, fn in fns.items():
             dist.barrier()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -2869,8 +2927,14 @@ def _probe_rank(rank: int, dev) -> dict:
 
 
 def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=None, train_res: int = 512,
-               shapes=MESH_SHAPES, dryrun: bool = True) -> dict:
-    """Phase 17: the device mesh (parallel/), every rank on this card."""
+               shapes=MESH_SHAPES, dryrun: bool = True, steps=MESH_STEPS, probe: bool = True) -> dict:
+    """Phase 17: the device mesh (parallel/).  Each (data, model) world of
+    ``shapes`` runs in spawned ranks that ``launch`` deals round-robin over
+    the visible cards (on one card every rank shares it over gloo; with a
+    card a rank they go over NCCL), its denoise loop at ``steps``, each
+    rank held against the single process and against its witness; the
+    (2, 1) world also takes a UNet training step.  ``probe``: first the
+    probe and the process group of one.  Returns the readings."""
     import os
     import tempfile
 
@@ -2879,59 +2943,66 @@ def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=Non
     from fresco_torch.parallel.distributed import initialize, launch
     from fresco_torch.parallel.dryrun import dryrun_multichip
 
-    probe = mesh_probe(dev)
+    readings = {"steps": dict(steps)}
+    if probe:
+        readings["probe"] = mesh_probe(dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    single = _mesh_batches(seed, dev, (1, 1), tiny, res)
+    single = _mesh_batches(seed, dev, (1, 1), tiny, res, steps=steps)
     for key in ("plain", "opt"):
         r = single[key]
         print(f"mesh: single process, feature optimization {'on' if key == 'opt' else 'off'}: "
-              f"{MESH_FRAMES} x {res} px, wall {r['wall_s']:.2f} s, peak {r['peak_gib']:.2f} GiB, "
-              f"launches {r['launches']} ({CARD})")
+              f"{MESH_FRAMES} x {res} px, {music_config(**steps).num_inference_steps} steps, wall {r['wall_s']:.2f} s, "
+              f"peak {r['peak_gib']:.2f} GiB, launches {r['launches']} ({CARD})")
     print("mesh: single process, parameter bytes whole: " + _bytes_line(single["split"]))
 
-    # a process group of one over NCCL: the (1, 1) mesh is the plain path, bit for bit
-    with tempfile.TemporaryDirectory() as tmp:
-        initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, device_type=dev.type)
-        try:
-            world1 = _mesh_batches(seed, dev, (1, 1), tiny, res)
-            backend = dist.get_backend()
-        finally:
-            dist.destroy_process_group()
-    same = all(torch.equal(world1[k]["latents"], single[k]["latents"]) for k in ("plain", "opt"))
-    print(f"mesh: process group of 1 ({backend}), mesh (1, 1): latents bit-equal to the plain path {same}")
-    if not same:
-        fail("mesh: the (1, 1) mesh in a process group of one differs from the plain path")
+    if probe:  # a process group of one over NCCL: the (1, 1) mesh is the plain path, bit for bit
+        with tempfile.TemporaryDirectory() as tmp:
+            initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, device_type=dev.type)
+            try:
+                world1 = _mesh_batches(seed, dev, (1, 1), tiny, res, steps=steps)
+                backend = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+        same = all(torch.equal(world1[k]["latents"], single[k]["latents"]) for k in ("plain", "opt"))
+        print(f"mesh: process group of 1 ({backend}), mesh (1, 1): latents bit-equal to the plain path {same}")
+        if not same:
+            fail("mesh: the (1, 1) mesh in a process group of one differs from the plain path")
 
-    train_single = _mesh_train(seed, dev, None, train_cfg, train_res)
+    train_single = _mesh_train(seed, dev, None, train_cfg, train_res) if (2, 1) in map(tuple, shapes) else None
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    readings = {"probe": probe, "single": {k: {x: single[k][x] for x in ("wall_s", "peak_gib", "launches")}
-                                           for k in ("plain", "opt")}}
+    readings["single"] = {k: {x: single[k][x] for x in ("wall_s", "peak_gib", "launches")} for k in ("plain", "opt")}
     for shape in shapes:
         # the witness: this process doing a rank's arithmetic of the mesh
         # (its kernel shapes, TP's partial sums) with no collective
-        witness = _mesh_batches(seed, dev, (1, 1), tiny, res, witness=shape)
+        witness = _mesh_batches(seed, dev, (1, 1), tiny, res, witness=shape, steps=steps)
         w_lat, w_psnr = _lat_rel(witness, single), _psnr_u8(witness["opt"]["images"], single["opt"]["images"])
         print(f"mesh {shape}: witness (one process, a rank's arithmetic, no collective) vs single: off: latents "
               f"rel fro {w_lat:.3e}; on: decoded PSNR {w_psnr:.2f} dB ({CARD})")
         world = shape[0] * shape[1]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks = launch(_mesh_rank, world, shape, seed, tiny, res, CARD, train_cfg, train_res,
-                       device=dev.type, timeout_s=900)
+        ranks = launch(_mesh_rank, world, shape, seed, tiny, res, CARD, train_cfg, train_res, steps,
+                       device=dev.type, timeout_s=MESH_TIMEOUT_S)
         wall = time.perf_counter() - t0
+        where = check_where(f"mesh {shape}", [out["where"] for out in ranks], dev)
         rows = []
         for r, out in enumerate(ranks):
             lat_rel, psnr = _lat_rel(out, single), _psnr_u8(out["opt"]["images"], single["opt"]["images"])
             lat_w, psnr_w = _lat_rel(out, witness), _psnr_u8(out["opt"]["images"], witness["opt"]["images"])
-            rows.append({"rank": r, "latent_rel": lat_rel, "psnr_db": psnr, "latent_rel_witness": lat_w,
-                         "psnr_db_witness": psnr_w,
+            max_w = {k: float((out[k]["latents"] - witness[k]["latents"]).abs().max()) for k in ("plain", "opt")}
+            rows.append({"rank": r, **out["where"], "latent_rel": lat_rel, "psnr_db": psnr,
+                         "latent_rel_witness": lat_w, "psnr_db_witness": psnr_w, "latent_max_abs_witness": max_w,
                          **{f"{k}_{x}": out[k][x] for k in ("plain", "opt") for x in ("wall_s", "peak_gib", "launches")}})
-            print(f"mesh {shape} rank {r}: off: latents rel fro vs witness {lat_w:.3e} (limit {MESH_WITNESS_REL}), "
+            print(f"mesh {shape} rank {r} ({out['where']['backend']}, card {out['where']['card']}): off: latents "
+                  f"rel fro vs witness {lat_w:.3e} (limit {MESH_WITNESS_REL}), max |d| {max_w['plain']:.3e}, "
                   f"vs single {lat_rel:.3e} (limit {MESH_LATENT_REL}), wall {out['plain']['wall_s']:.2f} s, peak "
                   f"{out['plain']['peak_gib']:.2f} GiB, launches {out['plain']['launches']}; on: decoded PSNR vs "
                   f"witness {psnr_w:.2f} dB (floor {MESH_PSNR_WITNESS_FLOOR}), vs single {psnr:.2f} dB (floor "
-                  f"{MESH_PSNR_FLOOR}), wall {out['opt']['wall_s']:.2f} s, peak {out['opt']['peak_gib']:.2f} GiB, "
+                  f"{MESH_PSNR_FLOOR}), latents max |d| vs witness {max_w['opt']:.3e}, wall "
+                  f"{out['opt']['wall_s']:.2f} s, peak {out['opt']['peak_gib']:.2f} GiB, "
                   f"launches {out['opt']['launches']} ({CARD})")
             flow_d = {k: float((out["flows"] - ref["flows"]).abs().max()) for k, ref in (("witness", witness),
                                                                                          ("single", single))}
@@ -2961,7 +3032,7 @@ def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=Non
                 loss_rel = abs(tr["loss"] - train_single["loss"]) / abs(train_single["loss"])
                 grad_rel = {n: _rel(tr["grads"][n], train_single["grads"][n]) for n in TRAIN_GRAD_PARAMS}
                 rows[-1].update(train_loss_rel=loss_rel, train_grad_rel=max(grad_rel.values()),
-                                train_step_s=tr["step_s"])
+                                train_step_s=tr["step_s"], train_peak_gib=tr["peak_gib"])
                 print(f"mesh {shape} rank {r}: UNet training step (batch 2 over data, {train_res} px) vs single: "
                       f"loss {tr['loss']:.6f} vs {train_single['loss']:.6f}, rel {loss_rel:.3e} (limit "
                       f"{MESH_TRAIN_LOSS_REL}); gradients max|d|/max|g| "
@@ -2970,9 +3041,9 @@ def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=Non
                         f"(single {train_single['step_s']:.2f} s) ({CARD})")
                 if loss_rel > MESH_TRAIN_LOSS_REL or max(grad_rel.values()) > MESH_TRAIN_GRAD_REL:
                     fail(f"mesh {shape}: the sharded training step differs from the single one")
-        print(f"mesh {shape}: {world} ranks on one card over gloo, call wall {wall:.2f} s "
-              "(walls reported, not judged: the ranks share one card)")
-        readings[str(shape)] = {"witness": {"latent_rel": w_lat, "psnr_db": w_psnr}, "ranks": rows}
+        print(f"mesh {shape}: {where}; call wall {wall:.2f} s (walls reported, not judged)")
+        readings[str(shape)] = {"witness": {"latent_rel": w_lat, "psnr_db": w_psnr}, "call_wall_s": wall,
+                                "ranks": rows}
     if dryrun:
         readings["dryrun"] = dryrun_multichip(4, device=dev.type)
         print(f"mesh: dryrun_multichip(4, device={dev.type!r}) passed ({CARD})")

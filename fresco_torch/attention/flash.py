@@ -77,21 +77,17 @@ def flash_attention(q, k, v, key_mask=None, *, scale=None):
         raise ValueError(f"flash_attention: key_mask must be bool [{b}, {sk}]")
     if q.device.type == "cpu":
         return naive_attention(q, k, v, key_mask, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    kernels.launch_card("flash_attention", q=q, k=k, v=v, key_mask=key_mask)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: {name} must be bfloat16 on {q.device}, got {t.dtype} on {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
         if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} needs a unit-stride head dim, 16-byte "
                              f"aligned rows and strides that are multiples of 8 (got {t.stride()})")
     if d % 8 or d > 512:
         raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 and <= 512")
-    if key_mask is not None:
-        if key_mask.device != q.device:
-            raise ValueError("flash_attention: key_mask on another device")
-        if key_mask.stride(-1) != 1:
-            raise ValueError("flash_attention: key_mask needs a unit-stride key axis")
+    if key_mask is not None and key_mask.stride(-1) != 1:
+        raise ValueError("flash_attention: key_mask needs a unit-stride key axis")
     return _run(q, k, v, key_mask, float(scale))
 
 
@@ -104,21 +100,18 @@ def _run(q, k, v, key_mask, scale: float):
 
 
 def _launch(q, k, v, key_mask, scale: float):
-    """One launch of the kernel on checked CUDA inputs -> [B,H,Sq,D]."""
+    """One launch of the kernel on checked CUDA inputs, which
+    ``flash_attention`` found all on q's card -> [B,H,Sq,D]."""
+    card = q.device
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lib = kernels.load()
-    rc = lib.fresco_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        key_mask.data_ptr() if key_mask is not None else None, out.data_ptr(),
-        b, h, sq, sk, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        key_mask.stride(0) if key_mask is not None else 0,
-        scale, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    kernels.check(rc, "flash_attn_fwd")
-    kernels.count_launch(flash_attention)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=card).transpose(1, 2)
+    kernels.call(flash_attention, "flash_attn_fwd", card,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 key_mask.data_ptr() if key_mask is not None else None, out.data_ptr(),
+                 b, h, sq, sk, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                 key_mask.stride(0) if key_mask is not None else 0, scale)
     return out
 
 
@@ -142,3 +135,4 @@ class _FlashAttention(torch.autograd.Function):
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_card = {}

@@ -25,6 +25,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -141,18 +143,59 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
+def launch_card(name: str, **tensors) -> torch.device:
+    """The card a launch of ``name`` runs on: the one device that every
+    tensor given (``None`` skipped) lies on, which must be a card; tensors
+    on two devices raise, naming each."""
+    card = None
+    for t in tensors.values():
+        if t is None:
+            continue
+        if card is None:
+            card = t.device
+        elif t.device != card:
+            raise ValueError(f"{name}: inputs on different devices: "
+                             + ", ".join(f"{n} on {u.device}" for n, u in tensors.items() if u is not None))
+    if card.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on a card, the inputs lie on {card}")
+    return card
+
+
+def call(wrapper, entry: str, card: torch.device, *args, shape=None) -> None:
+    """Launch the C entry point ``fresco_<entry>`` with ``args`` and
+    ``card``'s current stream, on ``card``; raise on its return code; given
+    a ``wrapper``, count the launch (``count_launch``, by ``shape`` and on
+    ``card``).  The CUDA runtime launches on the calling thread's current
+    device, so ``card`` is made current around the call where it is not:
+    a kernel runs on its tensors' card whichever card the caller has
+    current (F27)."""
+    fn = getattr(load(), "fresco_" + entry)
+    args = (*args, torch.cuda.current_stream(card).cuda_stream)
+    if torch.cuda.current_device() == card.index:
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(card):
+            rc = fn(*args)
+    check(rc, entry)
+    if wrapper is not None:
+        count_launch(wrapper, shape, card)
+
+
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, shape=None) -> None:
-    """Add one to ``wrapper.launches`` and, given ``shape``, to
-    ``wrapper.launches_by_shape[shape]``.  A wrapper may be called from any
-    thread (propagation synthesizes on worker threads), so the count is
+def count_launch(wrapper, shape=None, card: torch.device | None = None) -> None:
+    """Add one to ``wrapper.launches``, given ``shape`` to
+    ``wrapper.launches_by_shape[shape]`` and, given ``card``, to
+    ``wrapper.launches_by_card[card.index]``.  A wrapper may be called from
+    any thread (propagation synthesizes on worker threads), so the count is
     taken under a lock and no launch is lost."""
     with _count_lock:
         wrapper.launches += 1
         if shape is not None:
             wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
+        if card is not None:
+            wrapper.launches_by_card[card.index] = wrapper.launches_by_card.get(card.index, 0) + 1
 
 
 def wrappers() -> dict:
@@ -174,9 +217,15 @@ def launches() -> dict[str, int]:
     return {name: w.launches for name, w in wrappers().items()}
 
 
+def launches_by_card() -> dict[str, dict[int, int]]:
+    """Each kernel's launches so far by card index, by the names of ``wrappers``."""
+    return {name: dict(w.launches_by_card) for name, w in wrappers().items()}
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, its counts by card too."""
     ws = wrappers()
     with _count_lock:
         for w in ws.values():
             w.launches = 0
+            w.launches_by_card.clear()

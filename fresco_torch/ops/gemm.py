@@ -28,20 +28,17 @@ def bmm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bmm: shapes a{tuple(a.shape)} x{tuple(x.shape)}")
     if a.device.type == "cpu":
         return bmm_plain(a, x)
-    if a.device.type != "cuda" or x.device != a.device:
-        raise ValueError(f"bmm: unsupported devices {a.device}, {x.device}")
+    card = kernels.launch_card("bmm", a=a, x=x)
     if a.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
         raise TypeError(f"bmm: the CUDA kernel takes bfloat16, got {a.dtype}, {x.dtype}")
     a, x = a.contiguous(), x.contiguous()
     b, m, k = a.shape
     n = x.shape[-1]
     nb = x.shape[:-2].numel()
-    out = torch.empty((*x.shape[:-2], m, n), dtype=torch.float32, device=a.device)
-    kernels.check(kernels.load().fresco_bmm(
-        a.data_ptr(), x.data_ptr(), out.data_ptr(), nb, m, n, k, b,
-        torch.cuda.current_stream(a.device).cuda_stream), "bmm")
-    kernels.count_launch(bmm)
+    out = torch.empty((*x.shape[:-2], m, n), dtype=torch.float32, device=card)
+    kernels.call(bmm, "bmm", card, a.data_ptr(), x.data_ptr(), out.data_ptr(), nb, m, n, k, b)
     return out
 
 
 bmm.launches = 0
+bmm.launches_by_card = {}

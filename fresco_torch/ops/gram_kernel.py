@@ -45,16 +45,17 @@ def sign_gram_plain(v: torch.Tensor, corr: torch.Tensor, chunk_rows: int = 1024)
     return out
 
 
-def _check_cuda_inputs(v: torch.Tensor, corr: torch.Tensor) -> None:
+def _check_cuda_inputs(v: torch.Tensor, corr: torch.Tensor) -> torch.device:
+    """Raise unless the CUDA kernels take ``v`` and ``corr``; their card."""
     b, hw, c = v.shape
-    if v.device.type != "cuda" or corr.device != v.device:
-        raise ValueError(f"sign_gram: unsupported devices {v.device}, {corr.device}")
+    card = kernels.launch_card("sign_gram", v=v, corr=corr)
     if v.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"sign_gram: the CUDA kernels take bfloat16 or float32, got {v.dtype}")
     if not (v.is_contiguous() and corr.is_contiguous()):
         raise ValueError("sign_gram: v and corr must be contiguous")
     if c % 8 or v.data_ptr() % 16:
         raise ValueError(f"sign_gram: channels {c} must be a multiple of 8 and v 16-byte aligned")
+    return card
 
 
 def sign_matrix(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
@@ -62,16 +63,15 @@ def sign_matrix(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
     [B, hw, hw] with entries -1, 0, +1 (what the apply multiplies); float32
     v gives int8 S [B, hw, ldS], ldS = hw rounded up to 16 with the padding
     columns 0 (the float32 apply kernel's layout)."""
-    _check_cuda_inputs(v, corr)
+    card = _check_cuda_inputs(v, corr)
     b, hw, c = v.shape
     if v.dtype == torch.bfloat16:
         lds, s = hw, torch.empty((b, hw, hw), dtype=torch.bfloat16, device=v.device)
     else:
         lds = -(-hw // 16) * 16  # 16-byte rows for the float32 apply kernel's int8 loads
         s = torch.empty((b, hw, lds), dtype=torch.int8, device=v.device)
-    kernels.check(kernels.load().fresco_sign_gram_sign(
-        v.data_ptr(), corr.data_ptr(), s.data_ptr(), b, hw, c, lds, int(v.dtype == torch.float32),
-        torch.cuda.current_stream(v.device).cuda_stream), "sign_gram_sign")
+    kernels.call(None, "sign_gram_sign", card, v.data_ptr(), corr.data_ptr(), s.data_ptr(), b, hw, c, lds,
+                 int(v.dtype == torch.float32))
     return s
 
 
@@ -85,7 +85,7 @@ def sign_gram_apply(v: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
     if v.device.type == "cpu":
         return sign_gram_plain(v, corr)
     s = sign_matrix(v, corr)
-    kernels.count_launch(sign_gram_apply, (hw, c))
+    kernels.count_launch(sign_gram_apply, (hw, c), v.device)
     return apply_sign(s, v)
 
 
@@ -100,11 +100,11 @@ def apply_sign(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     vt = torch.zeros((b, c, lds), dtype=v.dtype, device=v.device)
     vt[:, :, :hw] = v.transpose(1, 2)
     out = torch.empty((b, hw, c), dtype=torch.float32, device=v.device)
-    kernels.check(kernels.load().fresco_sign_gram_apply_f32(
-        s.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hw, c, lds,
-        torch.cuda.current_stream(v.device).cuda_stream), "sign_gram_apply_f32")
+    card = kernels.launch_card("sign_gram_apply_f32", s=s, v=v)
+    kernels.call(None, "sign_gram_apply_f32", card, s.data_ptr(), vt.data_ptr(), out.data_ptr(), b, hw, c, lds)
     return out
 
 
 sign_gram_apply.launches = 0
 sign_gram_apply.launches_by_shape = {}
+sign_gram_apply.launches_by_card = {}

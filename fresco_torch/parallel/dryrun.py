@@ -13,7 +13,8 @@ on a ``(data, model)`` mesh with ``model = 2`` where n is even, and runs:
      UNet, ControlNet, VAE, text encoder and GMFlow (the flow source) split
      over ``model``; each rank prints its split layers per model;
   3. an interval wave (``propagate/parallel.run_jobs``, one patch-synthesis
-     job a device) against the serial ``synthesize`` of its first job.
+     job a card where n cards are visible, else all on one device)
+     against the serial ``synthesize`` of its first job.
 
 On the CPU (gloo) the model stack is tiny and float64, and step 2 holds
 sharded == single within ``atol = rtol = 1e-5``, as the JAX dry run does
@@ -127,9 +128,12 @@ def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def _wave_check(n_jobs: int, dev: torch.device) -> dict:
-    """``n_jobs`` synthesize jobs as one wave over [dev] * n_jobs against
-    the serial run of job 0: the NNF bit for bit, the output within 1e-4."""
-    from fresco_torch.propagate.parallel import job_devices, run_jobs
+    """``n_jobs`` synthesize jobs as one wave, one job a card where that
+    many cards are visible (else all on ``dev``), against the serial run of
+    job 0 on ``dev``: the NNF bit for bit, the output within 1e-4; on the
+    card, row_gather and patch_eval must launch on every card of the wave."""
+    from fresco_torch import kernels
+    from fresco_torch.propagate.parallel import run_jobs
     from fresco_torch.propagate.patchmatch import PatchMatchConfig, TorchDraws, synthesize
 
     cfg = PatchMatchConfig(patch_size=5, pm_iters=2, sv_iters=2, num_pyramid_levels=2)
@@ -138,20 +142,27 @@ def _wave_check(n_jobs: int, dev: torch.device) -> dict:
     styles = rng.uniform(0, 255, (n_jobs, hw, hw, 3)).astype(np.float32)
     src = rng.uniform(0, 255, (n_jobs, hw, hw, 3)).astype(np.float32)
     tgt = np.stack([np.roll(src[i], 2 + i, axis=0) for i in range(n_jobs)])
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
-    gw = torch.full((3,), 2.0, device=dev)
+    cuda = dev.type == "cuda"
+    devs = ([torch.device("cuda", i) for i in range(n_jobs)] if cuda and torch.cuda.device_count() >= n_jobs
+            else [dev] * n_jobs)
 
-    def job(i):
-        return lambda: synthesize(t(styles[i]), t(src[i]), t(tgt[i]), gw, cfg, draws=TorchDraws(11 + i, dev))
+    def job(i, d):
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(d)  # noqa: E731
+        gw = torch.full((3,), 2.0, device=d)
+        return lambda: synthesize(t(styles[i]), t(src[i]), t(tgt[i]), gw, cfg, draws=TorchDraws(11 + i, d))
 
-    waved = run_jobs(job_devices(n_jobs, [dev] * n_jobs), [job(i) for i in range(n_jobs)])
-    out0, _, nnf0 = job(0)()
+    kernels.reset_launches()
+    waved = run_jobs(devs, [job(i, d) for i, d in enumerate(devs)])
+    by_card = {name: n for name, n in kernels.launches_by_card().items() if name in ("row_gather", "patch_eval")}
+    out0, _, nnf0 = job(0, dev)()
     if not torch.equal(waved[0][2], nnf0):
         raise AssertionError("dryrun: the wave's NNF of job 0 differs from the serial run")
     err = float((waved[0][0] - out0).abs().max())
     if err > 1e-4:
         raise AssertionError(f"dryrun: the wave's output of job 0 differs from the serial run by {err}")
-    return {"jobs": n_jobs, "max_abs": err}
+    if cuda and any(by_card[name].get(d.index, 0) <= 0 for name in by_card for d in devs):
+        raise AssertionError(f"dryrun: a propagation kernel did not launch on every card of the wave: {by_card}")
+    return {"jobs": n_jobs, "max_abs": err, "devices": [str(d) for d in devs], "launches_by_card": by_card}
 
 
 def dryrun_multichip(n_devices: int, device: str | None = None, *, verbose: bool = True) -> dict:
@@ -215,7 +226,8 @@ def dryrun_multichip(n_devices: int, device: str | None = None, *, verbose: bool
             raise AssertionError(f"dryrun: rank {r} differs from the single process: {row}")
     say("1/3 sharded train step == single; 2/3 sampler sharded == single")
     out["wave"] = _wave_check(min(n_devices, 4), dev)
-    say(f"3/3 propagation wave of {out['wave']['jobs']} jobs == serial (max |d| {out['wave']['max_abs']:.2e})")
+    say(f"3/3 propagation wave of {out['wave']['jobs']} jobs on {', '.join(out['wave']['devices'])} == serial "
+        f"(max |d| {out['wave']['max_abs']:.2e}); launches by card {out['wave']['launches_by_card']}")
     out["single_loss"] = single_loss
     return out
 

@@ -26,19 +26,17 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_rows: table [N, W] and idx [K], got {tuple(table.shape)}, {tuple(idx.shape)}")
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
-    if table.device.type != "cuda" or idx.device != table.device:
-        raise ValueError(f"gather_rows: unsupported devices {table.device}, {idx.device}")
+    card = kernels.launch_card("gather_rows", table=table, idx=idx)
     if idx.dtype != torch.int32:
         raise TypeError(f"gather_rows: idx must be int32, got {idx.dtype}")
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_rows: table and idx must be contiguous")
     n, w = table.shape
-    out = torch.empty((idx.shape[0], w), dtype=table.dtype, device=table.device)
-    kernels.check(kernels.load().fresco_row_gather(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, idx.shape[0], w * table.element_size(),
-        torch.cuda.current_stream(table.device).cuda_stream), "row_gather")
-    kernels.count_launch(gather_rows)
+    out = torch.empty((idx.shape[0], w), dtype=table.dtype, device=card)
+    kernels.call(gather_rows, "row_gather", card, table.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
+                 idx.shape[0], w * table.element_size())
     return out
 
 
 gather_rows.launches = 0
+gather_rows.launches_by_card = {}

@@ -178,12 +178,12 @@ def _pad_channels(x: torch.Tensor, cp: int) -> torch.Tensor:
 
 def _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch):
     """Check a CUDA call's arguments and lay them out for the C entry point
-    ``fresco_patch_eval``: (its arguments, or None when no tile is listed;
-    nnf_out; e_out; the candidate count; the tensors the arguments point
-    into, which must outlive the launch)."""
-    dev = src.device
-    if dev.type != "cuda":
-        raise ValueError(f"patch_eval: unsupported device {dev}")
+    ``fresco_patch_eval``: (the card; its arguments but the stream, or
+    None when no tile is listed; nnf_out; e_out; the candidate count; the
+    tensors the arguments point into, which must outlive the launch)."""
+    dev = kernels.launch_card("patch_eval", src=src, tgt=tgt, weights=weights, omega=omega, nnf=nnf, e=e,
+                              deltas=deltas, mask=None if active is None else active.mask,
+                              tiles=None if active is None else active.tiles)
     sh, sw, c = src.shape
     th, tw = tgt.shape[:2]
     if src.dtype != torch.bfloat16 or tgt.dtype != torch.bfloat16 or tgt.shape[2] != c:
@@ -194,12 +194,6 @@ def _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch
     if len(shifts) > 8:
         raise ValueError("patch_eval: at most 8 shift distances")
     cp = 16 if c <= 16 else 32
-    tensors = dict(tgt=tgt, weights=weights, omega=omega, nnf=nnf, e=e, deltas=deltas,
-                   mask=None if active is None else active.mask,
-                   tiles=None if active is None else active.tiles)
-    for name, t in tensors.items():
-        if t is not None and t.device != dev:
-            raise ValueError(f"patch_eval: {name} on {t.device}, src on {dev}")
     if nnf.dtype != torch.int32 or nnf.shape != (th, tw, 2):
         raise TypeError(f"patch_eval: nnf must be int32 [{th}, {tw}, 2]")
     if deltas is not None and (deltas.dtype != torch.int32 or deltas.shape[1:] != (th, tw, 2)):
@@ -224,7 +218,7 @@ def _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch
     n_cand = 4 * len(shifts) + (0 if deltas_c is None else deltas_c.shape[0])
     tiles = None if active is None else active.tiles
     if tiles is not None and tiles.numel() == 0:
-        return None, nnf_out, e_out, n_cand or 1, ()
+        return dev, None, nnf_out, e_out, n_cand or 1, ()
     shift_vals = (ctypes.c_int * max(len(shifts), 1))(*shifts)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     keep = (src_p, tgt_p, w_p, omega_c, nnf_in, e_in, deltas_c, shift_vals)
@@ -233,9 +227,8 @@ def _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch
               ptr(tiles), None if active is None else active.mask.data_ptr(),
               sh, sw, th, tw, cp, patch, len(shifts), shift_vals,
               0 if deltas_c is None else deltas_c.shape[0],
-              0 if tiles is None else tiles.shape[0],
-              torch.cuda.current_stream(dev).cuda_stream)
-    return c_args, nnf_out, e_out, n_cand or 1, keep
+              0 if tiles is None else tiles.shape[0])
+    return dev, c_args, nnf_out, e_out, n_cand or 1, keep
 
 
 def patch_eval(src, tgt, weights, omega, nnf, e=None, shifts=(), deltas=None, active=None, patch=5):
@@ -257,14 +250,13 @@ def patch_eval(src, tgt, weights, omega, nnf, e=None, shifts=(), deltas=None, ac
         raise ValueError(f"patch_eval: patch {patch} (3 or 5)")
     if src.device.type == "cpu":
         return patch_eval_plain(src, tgt, weights, omega, nnf, e, shifts, deltas, active, patch)
-    c_args, nnf_out, e_out, n_cand, _keep = _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas,
-                                                         active, patch)
-    if c_args is None:
-        return nnf_out, e_out
-    kernels.check(kernels.load().fresco_patch_eval(*c_args), "patch_eval")
-    kernels.count_launch(patch_eval, (tgt.shape[0], tgt.shape[1], n_cand))
+    card, c_args, nnf_out, e_out, n_cand, _keep = _kernel_args(src, tgt, weights, omega, nnf, e, shifts, deltas,
+                                                               active, patch)
+    if c_args is not None:
+        kernels.call(patch_eval, "patch_eval", card, *c_args, shape=(tgt.shape[0], tgt.shape[1], n_cand))
     return nnf_out, e_out
 
 
 patch_eval.launches = 0
 patch_eval.launches_by_shape = {}
+patch_eval.launches_by_card = {}

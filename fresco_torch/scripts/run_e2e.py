@@ -6,7 +6,9 @@ propagation forced on: keyframe translation, propagation and blending,
 then the consistency metrics.  Prints the TOTAL wall and the metrics;
 ``phases.json`` and ``metrics.json`` land under the save path.  Runs on
 the card unless ``--device cpu`` is given; there it also prints the peak
-device memory and the launches of the five hand-written kernels.  The JAX
+device memory and the launches of the five hand-written kernels.  Under
+torchrun with a ``mesh_shape`` of more than one rank, each rank joins the
+process group before it reads its device, so its peak is its own card's.  The JAX
 script is meant to run after ``scripts/warm_cache.py``; the port has no
 compile cache to warm.
 
@@ -16,6 +18,7 @@ compile cache to warm.
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -40,6 +43,7 @@ def main(argv=None):
     from fresco_torch import kernels
     from fresco_torch.cli import run_config
     from fresco_torch.core.config import load_config
+    from fresco_torch.parallel import distributed
     from fresco_torch.pipeline.runner import resolve_device
 
     cfg = load_config(args.config)
@@ -49,6 +53,11 @@ def main(argv=None):
     cfg = cfg.replace(**kw)
     print(f"[e2e] config={args.config} save_path={cfg.save_path}", flush=True)
 
+    if math.prod(cfg.mesh_shape) > 1:
+        # join the process group first: it makes this rank's card current, so
+        # the peak below is read on the rank's own card (run_config's own
+        # initialize then returns at once)
+        distributed.initialize(device_type=None if args.device is None else torch.device(args.device).type)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

@@ -26,7 +26,8 @@ multiples of 8) and in the guidance layout.  The sparse warp (plain
 tensor code, no kernel of its own): its backward bit-identical across
 two calls, and within 1e-5 relative Frobenius of the dense matrix's
 transpose product.  Checkpoint tensors read on the host move to the card
-unchanged.
+unchanged.  With two cards, each kernel also runs on cuda:1 inputs while
+cuda:0 is current, under its own test's bounds (F27).
 """
 import pytest
 import torch
@@ -406,3 +407,49 @@ def test_safetensors_reader_on_cuda(cuda_device, tmp_path):
     for k, v in src.items():
         assert got[k].dtype == v.dtype and got[k].shape == v.shape
         assert torch.equal(got[k], v), k
+
+
+@pytest.fixture
+def second_card():
+    """cuda:1, with cuda:0 the calling thread's current card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+# each kernel's own test above, at one of its cases, on cuda:1
+_OFF_CURRENT = {
+    "flash_attn_fwd": lambda dev: test_flash_kernel_matches_plain(dev, 8, 300, 200, 40, "random", "bhsd"),
+    "sign_gram": lambda dev: test_sign_gram_bf16_pair(dev, 16, 4096, 640, 0),
+    "bmm": lambda dev: test_bmm_kernel_matches_plain(dev, (2, 3, 264, 136), 200),
+    "row_gather": lambda dev: test_row_gather_kernel_bit_equal(dev, torch.float32, 75, 777, 1),
+    "patch_eval": lambda dev: test_patch_eval_kernel_matches_plain(dev, 15, 5, "compact"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(_OFF_CURRENT))
+def test_kernel_runs_on_its_tensors_card(second_card, kernel):
+    """F27: the CUDA runtime launches on the thread's current card, so a
+    wrapper makes its tensors' card current around the launch: with cuda:0
+    current, each kernel on cuda:1 inputs equals its plain version, and
+    cuda:0 is current again after it."""
+    _OFF_CURRENT[kernel](second_card)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_launches_counted_by_card(second_card):
+    """Each launch counts on its tensors' card; inputs on two cards raise,
+    naming both."""
+    from fresco_torch import kernels
+    from fresco_torch.ops.gemm import bmm
+
+    a = torch.randn(2, 64, 64, device=second_card).to(torch.bfloat16)
+    before = dict(bmm.launches_by_card)
+    bmm(a, a)
+    assert bmm.launches_by_card == {**before, 1: before.get(1, 0) + 1}
+    with pytest.raises(ValueError, match="a on cuda:0, x on cuda:1"):
+        bmm(a.to("cuda:0"), a)
+    assert kernels.launches_by_card()["bmm"] == bmm.launches_by_card
