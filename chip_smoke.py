@@ -1744,8 +1744,8 @@ def phase_waves(seed: int, dev, hw=PROP_HW, devices=None):
     interval on ``dev``, bit for bit; ``blend_video_frames(n_devices=1)`` on
     the same clip as the serial stage.  Returns the walls, the wave's
     row_gather and patch_eval launches and peak memory on each card, and
-    (``"serial"``) the serial chains' outputs, which a caller may hold
-    other runs to."""
+    the serial chains' outputs (``"serial"``) and blended frames
+    (``"blend"``), which a caller may hold other runs to."""
     from fresco_torch import kernels
     from fresco_torch.propagate.gather import gather_rows
     from fresco_torch.propagate.patch_eval import patch_eval
@@ -1799,7 +1799,7 @@ def phase_waves(seed: int, dev, hw=PROP_HW, devices=None):
         fail(f"waves did not launch every propagation kernel on every card: {by_card}")
     return {"blend_serial_s": wall_blend, "chains_serial_s": wall_serial, "chains_wave_s": wall_wave,
             "bit_equal": same, "psnr_db": psnr, "devices": [str(d) for d in devices], "launches": launches,
-            "launches_by_card": by_card, "peak_gib_by_card": peaks, "serial": serial}
+            "launches_by_card": by_card, "peak_gib_by_card": peaks, "serial": serial, "blend": out}
 
 
 def phase_ebsynth(seed: int, dev, hw=PROP_HW):
@@ -2815,9 +2815,38 @@ def check_where(label: str, where: list[dict], dev) -> str:
             + ("; the ranks share a card" if len(where) > n_cards else "; a card a rank"))
 
 
+def _wave_clip(seed: int, dev, keys, hw):
+    """Phase 13's clip (``keys`` at ``hw``) as ``blend_video_frames`` takes
+    it: the frames, the styled keyframes and the flow function."""
+    frames, flows, _ = make_inputs(seed, keys[-1] + 1, hw)
+    return (dict(enumerate(frames)), {k: style_of(frames[k]) for k in keys}, pair_flow_fn(frames, flows, dev))
+
+
+def _mesh_wave(rank: int, seed: int, dev, keys, hw) -> dict:
+    """Phase 13's wave clip (``keys`` at ``hw``) through
+    ``blend_video_frames(n_devices="auto")`` over this world's ranks, a
+    chain a rank: rank 0's blended frames (None on the others), the wall,
+    the chains this rank ran and its row_gather and patch_eval launches."""
+    from fresco_torch import kernels
+    from fresco_torch.propagate.video_blend import blend_video_frames
+
+    frames, styled, flow_fn = _wave_clip(seed, dev, keys, hw)
+    mine = (frames, styled) if rank == 0 else (None, None)
+    timers: dict = {}
+    kernels.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = blend_video_frames(*mine, list(keys), flow_fn=flow_fn, n_devices="auto", device=dev, timers_out=timers)
+    _sync(dev)
+    launches = kernels.launches()
+    return {"frames": out, "wall_s": time.perf_counter() - t0, "chains": timers["chains"],
+            "launches": {n: launches[n] for n in ("row_gather", "patch_eval")}}
+
+
 def _mesh_rank(rank: int, dev, shape, seed: int, tiny: bool, res: int, card: str, train_cfg, train_res,
-               steps=MESH_STEPS):
-    """One spawned rank of phase 17: where it runs, then its batches."""
+               steps=MESH_STEPS, wave=None):
+    """One spawned rank of phase 17: where it runs, then its batches, and
+    (``wave``: phase 13's keys and size) its share of the wave clip."""
     global CARD
     CARD = card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2830,6 +2859,8 @@ def _mesh_rank(rank: int, dev, shape, seed: int, tiny: bool, res: int, card: str
     out = {"where": rank_where(dev), **_mesh_batches(seed, dev, shape, tiny, res, steps=steps)}
     if tuple(shape) == (2, 1):
         out["train"] = _mesh_train(seed, dev, make_mesh(*shape), train_cfg, train_res)
+    if wave is not None:
+        out["wave"] = _mesh_wave(rank, seed, dev, *wave)
     return out
 
 
@@ -2926,15 +2957,49 @@ def _probe_rank(rank: int, dev, world: int) -> dict:
     return out
 
 
+def _check_mesh_wave(seed: int, dev, wave, ranks: list, serial: dict | None) -> dict:
+    """Fail unless rank 0's wave frames equal the serial stage's bit for
+    bit, the other ranks returned None, every chain ran once and (on the
+    card) every rank launched row_gather and patch_eval; returns the walls."""
+    from fresco_torch.propagate.video_blend import blend_video_frames
+
+    keys, hw = wave
+    if serial is None:
+        frames, styled, flow_fn = _wave_clip(seed, dev, keys, hw)
+        serial = blend_video_frames(frames, styled, list(keys), flow_fn=flow_fn, n_devices=1, device=dev)
+    got = ranks[0]["wave"]["frames"]
+    same = sorted(got) == sorted(serial) and all(np.array_equal(got[i], serial[i]) for i in serial)
+    chains = sorted((c["seq_i"], c["d"], c["rank"]) for r in ranks for c in r["wave"]["chains"])
+    want = [(i, d) for i, (beg, end) in enumerate(zip(keys[:-1], keys[1:])) if end - beg > 1 for d in range(2)]
+    out = {"bit_equal": same, "walls_s": [r["wave"]["wall_s"] for r in ranks], "chains": chains,
+           "launches": [r["wave"]["launches"] for r in ranks]}
+    print(f"mesh (2, 1) wave: {keys[-1] + 1} frames {hw[0]}x{hw[1]}, keys {list(keys)}, blend_video_frames over the "
+          f"two ranks, a chain a rank: walls {', '.join(f'{w:.2f}' for w in out['walls_s'])} s; chains (interval, "
+          f"direction, rank) {chains}; launches {out['launches']}; rank 0's frames bit-equal to the serial stage's "
+          f"{same} ({CARD})")
+    if not same or any(r["wave"]["frames"] is not None for r in ranks[1:]):
+        fail("mesh (2, 1) wave: rank 0's frames differ from the serial stage's, or another rank returned frames")
+    if sorted(c[:2] for c in chains) != want or {c[2] for c in chains} != set(range(len(ranks))):
+        fail(f"mesh (2, 1) wave: chains {chains}, expected {want} over every rank")
+    if dev.type == "cuda" and min(n for r in out["launches"] for n in r.values()) <= 0:
+        fail(f"mesh (2, 1) wave: a rank did not launch row_gather and patch_eval: {out['launches']}")
+    return out
+
+
 def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=None, train_res: int = 512,
-               shapes=MESH_SHAPES, dryrun: bool = True, steps=MESH_STEPS, probe: bool = True) -> dict:
+               shapes=MESH_SHAPES, dryrun: bool = True, steps=MESH_STEPS, probe: bool = True, waves: bool = True,
+               wave_hw=PROP_HW, wave_serial: dict | None = None) -> dict:
     """Phase 17: the device mesh (parallel/).  Each (data, model) world of
     ``shapes`` runs in spawned ranks that ``launch`` deals round-robin over
     the visible cards (on one card every rank shares it over gloo; with a
     card a rank they go over NCCL), its denoise loop at ``steps``, each
     rank held against the single process and against its witness; the
-    (2, 1) world also takes a UNet training step.  ``probe``: first the
-    probe and the process group of one.  Returns the readings."""
+    (2, 1) world also takes a UNet training step and (``waves``) runs
+    phase 13's wave clip (WAVE_KEYS at ``wave_hw``) through
+    ``blend_video_frames`` over its two ranks, a chain a rank, rank 0's
+    frames held bit for bit to the serial stage's (``wave_serial``, phase
+    13's; made here when None).  ``probe``: first the probe and the process
+    group of one.  Returns the readings."""
     import os
     import tempfile
 
@@ -2983,10 +3048,13 @@ def phase_mesh(seed: int, dev, tiny: bool = False, res: int = 512, train_cfg=Non
         world = shape[0] * shape[1]
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        wave = (tuple(WAVE_KEYS), tuple(wave_hw)) if waves and tuple(shape) == (2, 1) else None
         t0 = time.perf_counter()
-        ranks = launch(_mesh_rank, world, shape, seed, tiny, res, CARD, train_cfg, train_res, steps,
+        ranks = launch(_mesh_rank, world, shape, seed, tiny, res, CARD, train_cfg, train_res, steps, wave,
                        device=dev.type, timeout_s=MESH_TIMEOUT_S)
         wall = time.perf_counter() - t0
+        if wave is not None:
+            readings[f"{tuple(shape)} wave"] = _check_mesh_wave(seed, dev, wave, ranks, wave_serial)
         where = check_where(f"mesh {shape}", [out["where"] for out in ranks], dev)
         rows = []
         for r, out in enumerate(ranks):
@@ -3091,11 +3159,11 @@ def main() -> None:
     phase_aux(args.seed, dev)
     phase_e2e(args.seed, dev, gram_rows=gram_rows, pe_shape_ms=pe_shape_ms)
     phase_weights(args.seed, dev, gram_rows)
-    phase_entry_points(args.seed, dev)
+    waves = phase_entry_points(args.seed, dev)
     phase_detectors(args.seed, dev, gram_rows)
     phase_train(args.seed, dev)
     phase_webui(args.seed, dev)
-    phase_mesh(args.seed, dev)
+    phase_mesh(args.seed, dev, wave_serial=waves["blend"])
 
     def row(name, source, replaces, err, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

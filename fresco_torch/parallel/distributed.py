@@ -126,6 +126,11 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def rank() -> int:
+    """This process's rank; 0 without a process group."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def global_layout(world: int, per_host: int, model: int = 1, data: int | None = None) -> np.ndarray:
     """Ranks as a ``[data, model]`` array, host-major: ``model`` must divide
     the ranks a host holds, so a model group never straddles hosts

@@ -430,6 +430,8 @@ class FrescoPipeline:
     # synchronize the device at each phase boundary so phase times are
     # device times, not enqueue times (off by default)
     sync_phases = False
+    # each batch's wall in the last translate_keyframes (none before one)
+    batch_seconds: tuple[float, ...] | list[float] = ()
 
     def __init__(self, config: FrescoConfig, bundle: ModelBundle | None = None, *,
                  tiny: bool = False, device: torch.device | str | None = None):
@@ -662,7 +664,8 @@ class FrescoPipeline:
         (``ab_prep_overlap.py``).  ``on_batch``, when given, is called with
         each batch's {key index: keyframe} right after its decode, before
         the next batch starts (``translate_keyframe_files`` writes them
-        there, as the JAX runner does)."""
+        there, as the JAX runner does).  ``batch_seconds`` holds each
+        batch's wall, prep to decode."""
         from fresco_torch.utils.guards import check_finite
 
         batches = self.keyframe_batches(frames, key_ind)
@@ -670,6 +673,7 @@ class FrescoPipeline:
             print(f"[fresco_torch] {len(batches)} batches: {[b[0] for b in batches]}")
         result: dict[int, np.ndarray] = {}
         record = None
+        self.batch_seconds = []
         for bi, (sub, imgs, prompts, negs) in enumerate(batches):
             t0 = time.perf_counter()
             gen = torch.Generator(device=self.device).manual_seed(self.config.seed)
@@ -678,6 +682,7 @@ class FrescoPipeline:
             latents, record = self._run_batch(prepared, record, bi > 0, nz, generator=gen)
             check_finite(f"batch{bi}_latents", latents)
             images = self.decode(latents)
+            self.batch_seconds.append(time.perf_counter() - t0)
             bias = 2 if bi > 0 else 0
             done = {num: images[ind + bias] for ind, num in enumerate(sub)}
             result.update(done)
@@ -685,7 +690,7 @@ class FrescoPipeline:
                 on_batch(done)
             if verbose:
                 print(f"[fresco_torch] batch {bi + 1}/{len(batches)}: {len(sub)} keyframes in "
-                      f"{time.perf_counter() - t0:.1f}s")
+                      f"{self.batch_seconds[-1]:.1f}s")
         if verbose:
             print("[fresco_torch] " + self.phases.report())
         return result

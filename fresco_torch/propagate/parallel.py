@@ -15,6 +15,15 @@ keyframes and flows, so nothing crosses devices.
 A device list may repeat one device: ``["cpu"] * 4`` runs a wave on the
 CPU, ``[cuda:0] * 4`` runs every chain of the wave on one card, one after
 the other (the output is the same; the multi-card speed is not).
+
+Under a process group of more than one rank the port is SPMD (F23): the
+counterpart of the JAX ``jobs`` mesh is the group's ranks, each a process
+with its own card, not threads of rank 0.  There ``"auto"`` means the
+group's ranks, ``blend_video_frames`` runs on every rank and deals a
+wave's chains one a rank (``dealt_over_group``); ``all_ranks``,
+``send_to`` and ``recv_from`` carry a wave's status and its chains'
+tensors between the ranks, on the rank's card over NCCL and through host
+memory over gloo (``wire_device``).
 """
 from __future__ import annotations
 
@@ -26,10 +35,85 @@ import torch
 
 
 def resolve_n_devices(n_devices: int | str, device: torch.device) -> int:
-    """``"auto"``: every visible card on the card, 1 on the CPU."""
+    """``"auto"``: the group's ranks under a process group of more than
+    one rank; else every visible card on the card, 1 on the CPU."""
+    from fresco_torch.parallel.distributed import world_size
+
     if n_devices == "auto":
+        if world_size() > 1:
+            return world_size()
         return torch.cuda.device_count() if device.type == "cuda" else 1
     return max(int(n_devices), 1)
+
+
+def dealt_over_group(n_devices: int | str, device: torch.device) -> bool:
+    """Whether a wave's chains go one a rank over the process group: under
+    a group of more than one rank, unless ``n_devices`` is 1 (the serial
+    path, on the rank that calls it).  Under a group any other count than
+    1, ``"auto"`` and the group's size raises: the ranks are the devices."""
+    from fresco_torch.parallel.distributed import world_size
+
+    world = world_size()
+    if world == 1:
+        return False
+    n = resolve_n_devices(n_devices, device)
+    if n == 1:
+        return False
+    if n != world:
+        raise ValueError(f"n_devices={n_devices!r} under a process group of {world} ranks: a wave's chains go one "
+                         f"a rank, so pass 'auto' or {world} (or 1 for the serial path on one rank)")
+    return True
+
+
+def device_scope(dev: torch.device):
+    """``dev`` current on the calling thread where it is a card (a new
+    thread starts on cuda:0)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def wire_device(dev: torch.device) -> torch.device:
+    """Where tensors travel between ranks: the rank's card over NCCL, host
+    memory over gloo."""
+    import torch.distributed as dist
+
+    return dev if dist.get_backend() == "nccl" else torch.device("cpu")
+
+
+def all_ranks(value, error: str | None = None, what: str = "a wave") -> list:
+    """Every rank's ``value`` on every rank (``all_gather_object``), after a
+    check that no rank failed: where any rank passes an ``error`` (its
+    traceback), every rank raises, naming the ranks and their tracebacks.
+    Over NCCL the calling thread must have the rank's card current."""
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (error, value))
+    failed = [(r, e) for r, (e, _) in enumerate(got) if e]
+    if failed:
+        raise RuntimeError(f"{what}: rank(s) {[r for r, _ in failed]} of {len(got)} failed\n"
+                           + "\n".join(f"rank {r}:\n{e}" for r, e in failed))
+    return [v for _, v in got]
+
+
+def send_to(tensors: Sequence[torch.Tensor], dst: int, wire: torch.device) -> None:
+    """Each of ``tensors`` to rank ``dst``, in order, by way of ``wire``."""
+    import torch.distributed as dist
+
+    for t in tensors:
+        dist.send(t.to(wire).contiguous(), dst)
+
+
+def recv_from(specs: Sequence[tuple], src: int, wire: torch.device, dev: torch.device) -> list[torch.Tensor]:
+    """The tensors that rank ``src`` sends with ``send_to``, of the
+    (shape, dtype) ``specs``, on ``dev``."""
+    import torch.distributed as dist
+
+    out = []
+    for shape, dtype in specs:
+        buf = torch.empty(shape, dtype=dtype, device=wire)
+        dist.recv(buf, src)
+        out.append(buf.to(dev))
+    return out
 
 
 def wave_devices(n_devices: int, device: torch.device) -> list[torch.device]:
@@ -62,7 +146,7 @@ def run_jobs(devices: Sequence[torch.device], tasks: Sequence[Callable]) -> list
     results: list = [None] * len(tasks)
 
     def run(dev: torch.device, idxs: list[int]) -> None:
-        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+        with device_scope(dev):
             for i in idxs:
                 results[i] = tasks[i]()
             if dev.type == "cuda":

@@ -17,6 +17,9 @@ The flow source, as in the JAX package: the caller's ``flow_fn``, else
 Farneback through OpenCV.  With ``n_devices`` > 1 the intervals run in
 waves, one chain per device (``_synthesize_chain_wave``,
 ``propagate/parallel.py``), with the same output as the serial path.
+Under a process group of more than one rank the devices are its ranks:
+every rank calls ``blend_video_frames`` (or ``blend_video``), each runs
+one chain of a wave on its own device, and rank 0 alone blends.
 
 Run: ``python -m fresco_torch.propagate.video_blend <dir> --key_ind 0 10``
 (the JAX command line's flags, plus ``--device``).
@@ -29,6 +32,7 @@ import functools
 import os
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -123,10 +127,14 @@ class _FlowCache:
                 fwd, bwd = flow[:n], flow[n:]
                 _, bwd_occ = forward_backward_consistency(fwd, bwd)
                 for j, (_, t) in enumerate(chunk):
-                    self.cache[t] = (bwd[j], bwd_occ[j])
-                    if self._path(t):
-                        np.savez(self._path(t), flow=bwd[j].cpu().numpy(), occ=bwd_occ[j].cpu().numpy())
+                    self.put(t, bwd[j], bwd_occ[j])
         return [self.cache[t] for t in tags]
+
+    def put(self, tag: str, flow: torch.Tensor, occ: torch.Tensor) -> None:
+        """Keep a pair's flow and occlusion (and write them to ``tmp_dir``)."""
+        self.cache[tag] = (flow, occ)
+        if self._path(tag):
+            np.savez(self._path(tag), flow=flow.cpu().numpy(), occ=occ.cpu().numpy())
 
 
 def _stream_seed(*keys: int) -> int:
@@ -219,6 +227,26 @@ def _synthesize_chain_wave(wave, cfg, seed: int, devices, inpaint_method: str = 
     return {k: tuple(v) for k, v in results.items()}
 
 
+def _clip_from_rank0(frames, keys, key_ind: list[int], dev: torch.device, wire: torch.device):
+    """Rank 0's frames key_ind[0]..key_ind[-1] and keyframes on every rank
+    of the group, as {index: uint8 tensor on ``dev``} (two broadcasts by
+    way of ``wire``; the other ranks pass None for both)."""
+    import torch.distributed as dist
+
+    from fresco_torch.parallel.distributed import main_process_value
+
+    lead = dist.get_rank() == 0
+    out = []
+    for imgs, idx in ((frames, range(key_ind[0], key_ind[-1] + 1)), (keys, list(key_ind))):
+        t = torch.from_numpy(np.stack([imgs[i] for i in idx])).to(wire) if lead else None
+        shape, dtype = main_process_value((tuple(t.shape), t.dtype) if lead else None)
+        if not lead:
+            t = torch.empty(shape, dtype=dtype, device=wire)
+        dist.broadcast(t, 0)
+        out.append(dict(zip(idx, t.to(dev).unbind(0))))
+    return out
+
+
 def default_flow_fn(gmflow_path: str | None = None, device: torch.device | str | None = None):
     """The propagation stage's flow source when the caller gives none
     (``fresco_tpu/propagate/video_blend.py:400-420``): GMFlow
@@ -269,7 +297,7 @@ def blend_video_frames(
     device: torch.device | str | None = None,
     draw_device: torch.device | str | None = None,
     timers_out: dict | None = None,
-) -> dict[int, np.ndarray]:
+) -> dict[int, np.ndarray] | None:
     """The propagation stage in memory (video_blend.py:423-708).
 
     ``frames``: {index: uint8 [H,W,3] BGR} for key_ind[0]..key_ind[-1];
@@ -279,7 +307,8 @@ def blend_video_frames(
     stage's ``ModelBundle.flow_fn``; None takes ``default_flow_fn``.
     ``synth_backend``: ``"jumpflood"`` (the device path) or ``"native"``
     (the C++ serpentine backend on the host).  ``n_devices``: 1 (serial),
-    an int or ``"auto"`` (every visible card; 1 on the CPU): with more
+    an int or ``"auto"`` (every visible card, 1 on the CPU; under a process
+    group, its ranks: below): with more
     than one and jumpflood, intervals run in waves of ``n_devices // 2``,
     shortest first, one chain per device (the first ``n_devices`` cards;
     on the CPU, ``n_devices`` copies of it); the output equals the serial
@@ -289,21 +318,50 @@ def blend_video_frames(
     are made (``TorchDraws``; the CPU makes a run on the card repeatable on
     the CPU).  Returns {index: blended uint8 [H,W,3] BGR}; the keyframes
     pass through unchanged.  ``timers_out`` receives the per-phase wall
-    seconds and ``wall_total``."""
-    from fresco_torch.propagate.parallel import resolve_n_devices, wave_devices
+    seconds and ``wall_total``.
+
+    Under a process group of more than one rank with ``n_devices``
+    ``"auto"`` (or the group's size), every rank calls it with the same
+    arguments, and the other ranks pass None for ``frames`` and ``keys``:
+    they take rank 0's over the group.  The waves are the same, each of
+    their chains runs on one rank, on that rank's device, with the serial
+    path's seed, and the ranks send their chains' outputs, errors and
+    forward flows to rank 0, which alone blends, reads and writes
+    ``tmp_dir`` and returns the frames (the others return None).  Rank 0
+    decides which intervals ``reuse_synthesis`` loads.  A rank that fails
+    makes every rank raise.  ``timers_out`` also receives ``chains``: a dict
+    per chain this rank synthesized (interval, direction, rank, device,
+    frames, wall)."""
+    from fresco_torch.propagate.parallel import dealt_over_group, device_scope, resolve_n_devices, wave_devices
 
     dev = resolve_device(device)
     if synth_backend not in ("jumpflood", "native"):
         raise ValueError(f"synth_backend {synth_backend!r}: expected 'jumpflood' or 'native'")
+    dealt = dealt_over_group(n_devices, dev)
     n_devices = resolve_n_devices(n_devices, dev)
-    devices = wave_devices(n_devices, dev) if n_devices > 1 and synth_backend == "jumpflood" else None
+    devices = wave_devices(n_devices, dev) if n_devices > 1 and synth_backend == "jumpflood" and not dealt else None
+    rank, wire, chains = 0, None, []
+    if dealt:
+        import torch.distributed as dist
+
+        from fresco_torch.propagate.parallel import all_ranks, recv_from, send_to, wire_device
+
+        rank, wire = dist.get_rank(), wire_device(dev)
+        args = all_ranks((list(key_ind), seed, patch_cfg, inpaint_method, synth_backend, poisson, use_histogram),
+                         what="blend_video_frames")
+        if any(a != args[0] for a in args):  # every rank sees every rank's and raises alike
+            raise ValueError(f"blend_video_frames: every rank must pass rank 0's arguments; by rank: {args}")
+        tmp_dir = tmp_dir if rank == 0 else None  # rank 0 alone reads and writes the caches
     if flow_fn is None:
         flow_fn = default_flow_fn(device=dev)
     if tmp_dir is not None:
         os.makedirs(tmp_dir, exist_ok=True)
     up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
-    frames_t = {i: up(frames[i]) for i in range(key_ind[0], key_ind[-1] + 1)}
-    keys_t = {i: up(keys[i]) for i in key_ind}
+    if dealt:
+        frames_t, keys_t = _clip_from_rank0(frames, keys, key_ind, dev, wire)
+    else:
+        frames_t = {i: up(frames[i]) for i in range(key_ind[0], key_ind[-1] + 1)}
+        keys_t = {i: up(keys[i]) for i in key_ind}
     timers = PhaseTimers()
     fcache = _FlowCache(flow_fn, dev, tmp_dir=tmp_dir, timers=timers)
     n_seq = len(key_ind) - 1
@@ -317,18 +375,22 @@ def blend_video_frames(
         cache = synth_cache(seq_i)
         return reuse_synthesis and cache is not None and os.path.exists(cache)
 
+    def chain_inputs(seq_i, d):
+        """(key_img, frames, flows) of chain ``d`` of interval seq_i, the
+        flows computed or loaded (flow thread)."""
+        beg, end = key_ind[seq_i], key_ind[seq_i + 1]
+        seq = [frames_t[i] for i in range(beg, end + 1)]
+        js = list(range(max(end - beg - 1, 0)))
+        if d == 0:
+            return keys_t[beg], seq, fcache.get_batch(seq, js, [f"f{beg}_{j}" for j in js])
+        return keys_t[end], seq[::-1], fcache.get_batch(seq[::-1], js, [f"b{end}_{j}" for j in js])
+
     def interval_inputs(seq_i):
         """(key_imgs, frames_pair, flows_pair) of interval seq_i; computes
         or loads the pair flows (flow thread)."""
-        beg, end = key_ind[seq_i], key_ind[seq_i + 1]
-        seq_frames = [frames_t[i] for i in range(beg, end + 1)]
-        rev_frames = seq_frames[::-1]
-        js = list(range(max(end - beg - 1, 0)))
-        fwd_flows = fcache.get_batch(seq_frames, js, [f"f{beg}_{j}" for j in js])
-        bwd_flows = None
-        if not cached(seq_i):
-            bwd_flows = fcache.get_batch(rev_frames, js, [f"b{end}_{j}" for j in js])
-        return (keys_t[beg], keys_t[end]), (seq_frames, rev_frames), (fwd_flows, bwd_flows)
+        key_img, seq, fwd_flows = chain_inputs(seq_i, 0)
+        bwd_flows = None if cached(seq_i) else chain_inputs(seq_i, 1)[2]
+        return (key_img, keys_t[key_ind[seq_i + 1]]), (seq, seq[::-1]), (fwd_flows, bwd_flows)
 
     def load_synth(seq_i, fwd_flows):
         z = np.load(synth_cache(seq_i))
@@ -400,6 +462,67 @@ def blend_video_frames(
                 res = poisson_fusion(hb, oa, ob, mask) if poisson else hb
                 result[beg + i + 1] = res.cpu().numpy()
 
+    # The waves dealt over the group's ranks: wave wi's job k (its
+    # intervals' chains in _synthesize_chain_wave's order) runs on rank k
+    if dealt:
+        per_wave = max(n_devices // 2, 1)
+        order = sorted(range(n_seq), key=lambda i: key_ind[i + 1] - key_ind[i])
+        dealt_waves = [order[i:i + per_wave] for i in range(0, n_seq, per_wave)]
+        skip = set(all_ranks(sorted(i for i in range(n_seq) if cached(i)), what="blend_video_frames")[0])
+        jobs = [[(s, d) for s in w if s not in skip and key_ind[s + 1] - key_ind[s] > 1 for d in range(2)]
+                for w in dealt_waves]
+
+        def rank_inputs(wi):
+            """This rank's share of wave wi (flow thread): its job and the
+            job's inputs, and on rank 0 the forward flows of the wave's
+            cached intervals, which it blends without a chain."""
+            job = jobs[wi][rank] if rank < len(jobs[wi]) else None
+            fwd = {s: chain_inputs(s, 0)[2] for s in dealt_waves[wi] if s in skip} if rank == 0 else {}
+            return job, (chain_inputs(*job) if job else None), fwd
+
+        def dealt_wave(wi):
+            """This rank's chain of wave wi, then the exchange (synthesis
+            thread).  Returns {seq_i: synth_interval's tuple} on rank 0,
+            None on the others."""
+            payload, err = [], None
+            try:
+                job, inputs, fwd = take_inputs(wi)
+                if job is not None:
+                    (s, d), (key_img, chain_frames, flows) = job, inputs
+                    t0 = time.perf_counter()
+                    outs, errs = _synthesize_chain(key_img, chain_frames, flows, patch_cfg, _stream_seed(seed, s), d,
+                                                   inpaint_method, timers, draw_device, synth_backend)
+                    chains.append({"seq_i": s, "d": d, "rank": rank, "device": str(dev), "frames": len(outs),
+                                   "wall_s": time.perf_counter() - t0})
+                    payload = [torch.stack(outs), torch.stack(errs)]
+                    if d == 0:  # the forward chain's flows: rank 0's blend reads them
+                        payload += [torch.stack([f for f, _ in flows]), torch.stack([o for _, o in flows])]
+            except Exception:  # every rank raises in all_ranks, with this traceback
+                err = traceback.format_exc()
+            with timers("exchange"):
+                specs = all_ranks([(tuple(t.shape), t.dtype) for t in payload], err, f"propagation wave {wi}")
+                if rank != 0:
+                    send_to(payload, 0, wire)
+                    return None
+                got = {jobs[wi][r]: payload if r == 0 else recv_from(specs[r], r, wire, dev)
+                       for r in range(len(jobs[wi]))}
+            results = {}
+            for s in dealt_waves[wi]:
+                beg = key_ind[s]
+                if s in skip:
+                    results[s] = load_synth(s, fwd[s])
+                elif (s, 0) not in got:  # an interval of one frame: no chain
+                    results[s] = ([], [], [], [], [])
+                else:
+                    fo, fe, ff, focc = (list(t.unbind(0)) for t in got[(s, 0)])
+                    bo, be = (list(t.unbind(0))[::-1] for t in got[(s, 1)])
+                    if jobs[wi][0] != (s, 0):  # another rank's flows: kept (and written) as rank 0's own are
+                        for j, (f, o) in enumerate(zip(ff, focc)):
+                            fcache.put(f"f{beg}_{j}", f, o)
+                    save_synth(s, fo, fe, bo, be)
+                    results[s] = (fo, fe, bo, be, list(zip(ff, focc)))
+            return results
+
     # Three-stage pipeline (video_blend.py:613-694): the flow thread keeps
     # FLOW_AHEAD intervals of flows ready, the synthesis thread runs
     # interval (or wave) k+1 while the main thread blends interval k.
@@ -408,12 +531,18 @@ def blend_video_frames(
     flow_ahead = 2
     inputs_fut: dict = {}
 
-    def queue_inputs(order, pos):
-        """Queue interval_inputs on the flow thread for the synthesis-order
+    def scoped(fn, *args):
+        """``fn(*args)`` with this rank's device current (the pool's threads
+        start on cuda:0)."""
+        with device_scope(dev):
+            return fn(*args)
+
+    def queue_inputs(order, pos, fn=interval_inputs):
+        """Queue ``fn`` on the flow thread for the synthesis-order
         positions up to ``pos + flow_ahead``."""
         for i in order[: pos + 1 + flow_ahead]:
             if i not in inputs_fut:
-                inputs_fut[i] = flow_ex.submit(interval_inputs, i)
+                inputs_fut[i] = flow_ex.submit(scoped, fn, i)
 
     def take_inputs(seq_i):
         """One interval's inputs, released once taken (synthesis thread)."""
@@ -423,7 +552,28 @@ def blend_video_frames(
 
     t0 = time.perf_counter()
     try:
-        if devices is not None and n_seq > 0:
+        if dealt and n_seq > 0:
+            wave_order = list(range(len(dealt_waves)))
+
+            def launch_dealt(wi):
+                queue_inputs(wave_order, wi, rank_inputs)
+                return executor.submit(scoped, dealt_wave, wi)
+
+            nxt = launch_dealt(0)
+            for wi, wave_idx in enumerate(dealt_waves):
+                res = nxt.result()
+                nxt = launch_dealt(wi + 1) if wi + 1 < len(dealt_waves) else None
+                if rank != 0:
+                    continue
+                try:
+                    for seq_i in sorted(wave_idx):
+                        blend_interval(seq_i, *res[seq_i])
+                except Exception:
+                    if wi + 2 < len(dealt_waves):  # the ranks go on to wave wi + 2's exchange: fail it there
+                        nxt.result()
+                        scoped(all_ranks, [], traceback.format_exc(), f"propagation wave {wi + 2} (rank 0's blend)")
+                    raise
+        elif devices is not None and n_seq > 0:
             per_wave = max(n_devices // 2, 1)
             # intervals of similar length share a wave: a finished chain
             # waits for the wave's longest one
@@ -457,16 +607,20 @@ def blend_video_frames(
     finally:
         executor.shutdown(wait=False, cancel_futures=True)
         flow_ex.shutdown(wait=False, cancel_futures=True)
-    result[key_ind[-1]] = keys[key_ind[-1]]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     total = time.perf_counter() - t0
-    print(f"[fresco_torch] propagation+blend: {total:.1f}s")
-    if timers.t:
-        print(timers.table(total))
     if timers_out is not None:
         timers_out.update(timers.t)
         timers_out["wall_total"] = total
+        if dealt:
+            timers_out["chains"] = chains
+    if rank != 0:
+        return None
+    result[key_ind[-1]] = keys[key_ind[-1]]
+    print(f"[fresco_torch] propagation+blend: {total:.1f}s")
+    if timers.t:
+        print(timers.table(total))
     return result
 
 
@@ -494,21 +648,33 @@ def blend_video(base_dir: str, key_ind: list[int], key_dir: str = "keys", output
                 patch_cfg: PatchMatchConfig = PatchMatchConfig(), seed: int = 0,
                 reuse_synthesis: bool = False, keep_tmp: bool = True, synth_backend: str = "jumpflood",
                 inpaint_method: str = "pushpull", n_devices: int | str = 1,
-                device: torch.device | str | None = None, timers_out: dict | None = None) -> str:
+                device: torch.device | str | None = None, timers_out: dict | None = None) -> str | None:
     """The reference's file layout around ``blend_video_frames``: reads
     base_dir/video/%04d.png and base_dir/<key_dir>/%04d.png, writes
     base_dir/blend/%04d.png (caches in base_dir/tmp) and, given
     ``output``, those frames as an mp4 at ``fps``.  ``n_proc`` is accepted
     for the CLI's sake and not used (as in the JAX package); the other
-    options are ``blend_video_frames``'s.  Returns the blend directory."""
-    frames = {i: read_bgr(os.path.join(base_dir, "video", "%04d.png" % i))
-              for i in range(key_ind[0], key_ind[-1] + 1)}
-    keys = {i: read_bgr(os.path.join(base_dir, key_dir, "%04d.png" % i)) for i in key_ind}
+    options are ``blend_video_frames``'s.  Returns the blend directory.
+    Where ``blend_video_frames`` deals the chains over a process group,
+    every rank calls it: rank 0 alone reads and writes files, and the
+    other ranks return None."""
+    import torch.distributed as dist
+
+    from fresco_torch.propagate.parallel import dealt_over_group
+
+    lead = not dealt_over_group(n_devices, resolve_device(device)) or dist.get_rank() == 0
+    frames = keys = None
+    if lead:
+        frames = {i: read_bgr(os.path.join(base_dir, "video", "%04d.png" % i))
+                  for i in range(key_ind[0], key_ind[-1] + 1)}
+        keys = {i: read_bgr(os.path.join(base_dir, key_dir, "%04d.png" % i)) for i in key_ind}
     out = blend_video_frames(
         frames, keys, key_ind, flow_fn=flow_fn, poisson=poisson, use_histogram=use_histogram,
         patch_cfg=patch_cfg, seed=seed, inpaint_method=inpaint_method, synth_backend=synth_backend,
         n_devices=n_devices, tmp_dir=os.path.join(base_dir, "tmp"), reuse_synthesis=reuse_synthesis, keep_tmp=keep_tmp,
         device=device, timers_out=timers_out)
+    if not lead:
+        return None
     blend_dir = os.path.join(base_dir, "blend")
     os.makedirs(blend_dir, exist_ok=True)
     for i, img in out.items():

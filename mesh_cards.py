@@ -2,6 +2,8 @@
 
     python3 mesh_cards.py [--seed 0] [--out artifacts/torch_mesh_cards/readings.json]
     python3 mesh_cards.py --cpu --tiny    # the same phases over gloo on the CPU at 64 px: a rehearsal
+    python3 mesh_cards.py --clip [--out artifacts/torch_mesh_cards/clip.json]   # a whole clip alone
+    python3 mesh_cards.py --clip --cpu --tiny --work DIR   # its rehearsal: four gloo ranks, 24 frames at 64 px
 
 On the card it needs four visible cards and raises, naming the count it
 sees, where there are fewer: ranks that share a card go over gloo, which
@@ -34,6 +36,25 @@ line:
      process of its own on its card, bit for bit, with their walls;
   6. dry run: ``dryrun_multichip(4, device="cuda")`` over NCCL.
 
+``--clip`` runs one phase instead, the whole config_music clip, 240
+frames at 512x640 with seeded random weights (``--random-aux-weights``),
+and writes ``artifacts/torch_mesh_cards/clip.json``:
+
+  a. one card, keyframes only: ``run_e2e --keyframes-only`` in one process
+     on cuda:0, the keyframe stage's wall and its keys;
+  b. four cards: ``run_e2e`` under torchrun (``python -m
+     torch.distributed.run --nproc-per-node 4 --master-addr 127.0.0.1``)
+     with ``mesh_shape: [4, 1]``, every rank on NCCL on its own card,
+     propagation's chains dealt one a rank: TOTAL, each phase and each
+     rank's card, batch walls, chain walls, peak and launches by card;
+  c. one card, serial propagation: ``blend_video`` of (b)'s keys with
+     ``n_devices=1`` on cuda:0 into a fresh directory, held to (b)'s
+     blend/ frames bit for bit, with both propagation walls;
+  d. (b)'s keys against (a)'s, each at least ``MESH_PSNR_FLOOR`` dB.
+
+The YAML is config/config_music.yaml with the mesh (and, rehearsing, the
+cut) added, written under ``--work``.
+
 Every reading goes to one JSON file (``--out``), written after each phase.
 A phase that fails is recorded there with its error and the next one
 runs; any failure makes the exit code 1.  Imports neither jax nor the JAX
@@ -55,6 +76,14 @@ import chip_smoke as cs
 
 CARDS = 4
 OUT = "artifacts/torch_mesh_cards/readings.json"
+CLIP_OUT = "artifacts/torch_mesh_cards/clip.json"
+CLIP_CONFIG = "config/config_music.yaml"
+CLIP_SHAPE = (4, 1)   # the fastest rank batch on four cards (readings.json), and no rank splits GMFlow
+CLIP_WORK = "output/mesh_clip"
+# the CPU rehearsal's cut of config_music: 24 frames at 64 px, intervals
+# 4 / 8 (several waves of four chains), 4 steps, tiny models
+CLIP_TINY = dict(frame_count=24, resolution=64, mininterv=4, maxinterv=8, num_inference_steps=4, num_warmup_steps=1,
+                 end_opt_step=3)
 WORLDS = ((2, 1), (1, 2), (2, 2), (4, 1))
 FULL_SHAPE = (2, 2)
 FULL_STEPS: dict = {}   # config_music's own: 20 steps, warmup 3, feature optimization to step 15
@@ -221,6 +250,7 @@ def phase_waves(seed: int, dev, wave_kw: dict) -> dict:
     devs = [torch.device("cuda", i) for i in range(CARDS)] if dev.type == "cuda" else [dev] * CARDS
     out = cs.phase_waves(seed, dev, devices=devs, **wave_kw)
     serial = out.pop("serial")
+    out.pop("blend")
     t0 = time.perf_counter()
     ranks = launch(_chain_rank, CARDS, seed, wave_kw.get("hw", cs.PROP_HW), cs.WAVE_KEYS, device=dev.type,
                    timeout_s=cs.MESH_TIMEOUT_S)
@@ -240,13 +270,188 @@ def phase_waves(seed: int, dev, wave_kw: dict) -> dict:
     return out
 
 
+def _clip_yaml(path: str, shape, cut: dict) -> str:
+    """config_music's YAML with ``mesh_shape`` and ``cut`` set, at ``path``."""
+    import yaml
+
+    with open(CLIP_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(cut, mesh_shape=list(shape))
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _run_logged(cmd: list, log: str, timeout_s: float, env=None) -> float:
+    """``cmd`` in a session of its own with its output in ``log``; its wall,
+    or a raise with the log's end where it fails.  Past ``timeout_s`` the
+    whole session is killed (torchrun's workers too)."""
+    import signal
+
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        try:
+            rc = p.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            rc = f"killed at its {timeout_s:.0f} s limit"
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log) as f:
+            tail = f.read()[-6000:]
+        raise RuntimeError(f"{' '.join(cmd)} exited {rc} after {wall:.1f} s; the end of {log}:\n{tail}")
+    return wall
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _pngs(d: str) -> dict:
+    from fresco_torch.propagate.video_blend import read_bgr
+
+    return {int(f[:4]): read_bgr(os.path.join(d, f)) for f in sorted(os.listdir(d)) if f.endswith(".png")}
+
+
+def _by_card(launches: dict, name: str) -> dict:
+    return {int(c): n for c, n in launches.get(name, {}).items()}
+
+
+def phase_clip(dev, tiny: bool, work: str) -> dict:
+    """The ``--clip`` phase (a-d of the docstring); returns the readings
+    and fails (``cs.fail``) on a bound missed."""
+    import shutil
+
+    import numpy as np
+
+    from fresco_torch import kernels
+    from fresco_torch.core.config import load_config
+    from fresco_torch.propagate.video_blend import blend_video
+    from fresco_torch.utils.classic_flow import pairwise_flow_fn
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cut = CLIP_TINY if tiny else {}
+    cpu = ["--device", "cpu", "--tiny"] if dev.type == "cpu" else []
+    e2e = ["-m", "fresco_torch.scripts.run_e2e", "--random-aux-weights"]
+    out = {"config": CLIP_CONFIG, "cut": cut, "mesh_shape": list(CLIP_SHAPE), "card": cs.CARD}
+    d = {k: os.path.join(work, k) for k in ("single", "cards", "serial")}
+
+    # (a) one card, keyframes only
+    wall = _run_logged([sys.executable, *e2e, _clip_yaml(os.path.join(work, "single.yaml"), (1, 1), cut),
+                        "--keyframes-only", "--save-path", d["single"] + "/",
+                        "--readings", os.path.join(d["single"], "readings.json"), *cpu],
+                       os.path.join(work, "single.log"), timeout_s=400)
+    with open(os.path.join(d["single"], "readings.json")) as f:
+        out["single_keyframes"] = {"call_wall_s": wall, **json.load(f)}
+    single = out["single_keyframes"]
+    print(f"[mesh_cards] clip (a) one card, keyframes only: keyframe stage {single['keyframes_s']:.1f} s "
+          f"(batches {', '.join(f'{b:.2f}' for b in single['batch_walls_s'])} s), TOTAL {single['wall_s']:.1f} s, "
+          f"peak {single.get('peak_gib', 0):.2f} GiB ({cs.CARD})", flush=True)
+
+    # (b) four cards under torchrun
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or CARDS) // CARDS)))  # torchrun's default is 1
+    out["omp_num_threads"] = env["OMP_NUM_THREADS"]
+    wall = _run_logged([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(CARDS),
+                        "--master-addr", "127.0.0.1", "--master-port", str(_free_port()), *e2e,
+                        _clip_yaml(os.path.join(work, "cards.yaml"), CLIP_SHAPE, cut), "--save-path", d["cards"] + "/",
+                        "--readings", os.path.join(d["cards"], "rank{rank}.json"), *cpu],
+                       os.path.join(work, "cards.log"), env=env, timeout_s=600)
+    ranks = []
+    for r in range(CARDS):
+        with open(os.path.join(d["cards"], f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(d["cards"], "phases.json")) as f:
+        phases = json.load(f)
+    with open(os.path.join(d["cards"], "metrics.json")) as f:
+        metrics = json.load(f)
+    out["cards"] = {"call_wall_s": wall, "total_s": ranks[0]["wall_s"], "phases": phases, "metrics": metrics,
+                    "ranks": ranks}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    for r, rk in enumerate(ranks):
+        chains = rk["chains"]
+        print(f"[mesh_cards] clip (b) rank {r} ({rk['backend']}, {rk['device']}): TOTAL {rk['wall_s']:.1f} s, "
+              f"keyframes {rk['keyframes_s']:.1f} s (batches {', '.join(f'{b:.2f}' for b in rk['batch_walls_s'])}), "
+              f"{len(chains)} chains ({sum(c['wall_s'] for c in chains):.1f} s: "
+              + ", ".join(f"{c['seq_i']}{'fb'[c['d']]} {c['wall_s']:.2f}" for c in chains)
+              + f"), propagation {rk['propagation']['wall_total']:.1f} s, peak {rk.get('peak_gib', 0):.2f} GiB, "
+              f"launches by card {rk.get('launches_by_card')} ({cs.CARD})", flush=True)
+        want = f"cuda:{r}" if dev.type == "cuda" else "cpu"
+        if rk["backend"] != backend or rk["device"] != want or rk["world"] != CARDS:
+            cs.fail(f"clip (b) rank {r}: {rk['backend']} on {rk['device']} in a world of {rk['world']}, "
+                    f"expected {backend} on {want} in one of {CARDS}")
+        if not chains:
+            cs.fail(f"clip (b) rank {r} synthesized no chain")
+        if dev.type == "cuda":
+            for name in ("flash_attn_fwd", "sign_gram", "bmm", "row_gather", "patch_eval"):
+                by_card = _by_card(rk["launches_by_card"], name)
+                if set(by_card) != {r} or by_card[r] <= 0:
+                    cs.fail(f"clip (b) rank {r}: {name} launched by card {by_card}, expected on card {r} alone")
+    print(f"[mesh_cards] clip (b) four cards: TOTAL {ranks[0]['wall_s']:.1f} s (call {wall:.1f} s), keyframes "
+          f"{ranks[0]['keyframes_s']:.1f} s, propagation {phases['propagation']['wall_total']:.1f} s, phases "
+          f"{phases['propagation']}; metrics {metrics} ({cs.CARD})", flush=True)
+
+    # (c) one card, serial propagation of (b)'s keys into a fresh directory
+    cfg = load_config(os.path.join(work, "cards.yaml"))
+    if os.path.exists(str(cfg.gmflow_path)):
+        cs.fail(f"clip (c): a GMFlow checkpoint at {cfg.gmflow_path}: (c) takes Farneback's flows, as (b) does "
+                "without one")
+    os.makedirs(d["serial"])
+    for sub in ("video", "keys"):
+        os.symlink(os.path.abspath(os.path.join(d["cards"], sub)), os.path.join(d["serial"], sub))
+    key_ind = sorted(_pngs(os.path.join(d["cards"], "keys")))
+    timers: dict = {}
+    kernels.reset_launches()
+    cs._reset_peak(dev)
+    t0 = time.perf_counter()
+    blend_video(d["serial"], key_ind, flow_fn=pairwise_flow_fn(), poisson=True, n_devices=1, device=dev,
+                timers_out=timers)
+    cs._sync(dev)
+    out["serial"] = {"wall_s": time.perf_counter() - t0, "propagation": timers, "peak_gib": cs._peak_gib(dev),
+                     "launches": kernels.launches(), "key_ind": key_ind}
+    got, ref = _pngs(os.path.join(d["cards"], "blend")), _pngs(os.path.join(d["serial"], "blend"))
+    differ = sorted(i for i in ref if i not in got or not np.array_equal(got[i], ref[i]))
+    out["serial"]["bit_equal"] = not differ and sorted(got) == sorted(ref)
+    print(f"[mesh_cards] clip (c) one card, serial propagation of (b)'s {len(key_ind)} keys: propagation "
+          f"{timers['wall_total']:.1f} s against {phases['propagation']['wall_total']:.1f} s on four cards; "
+          f"{len(ref)} blend frames, bit-equal to (b)'s {out['serial']['bit_equal']} (differ: {differ[:10]}) "
+          f"({cs.CARD})", flush=True)
+    if not out["serial"]["bit_equal"]:
+        cs.fail(f"clip (c): (b)'s blend frames differ from the serial propagation's at {differ[:10]}")
+
+    # (d) the keys against one card's
+    a_keys, b_keys = _pngs(os.path.join(d["single"], "keys")), _pngs(os.path.join(d["cards"], "keys"))
+    if sorted(a_keys) != sorted(b_keys):
+        cs.fail(f"clip (d): keyframes {sorted(a_keys)} on one card, {sorted(b_keys)} on four")
+    psnr = {k: cs._psnr_u8(b_keys[k], a_keys[k]) for k in a_keys}
+    out["keys_vs_single"] = {"psnr_db": psnr, "mean_db": float(np.mean([min(p, 99.0) for p in psnr.values()])),
+                             "worst_db": min(psnr.values()), "floor_db": cs.MESH_PSNR_FLOOR}
+    print(f"[mesh_cards] clip (d) keys on four cards against one card's: PSNR mean "
+          f"{out['keys_vs_single']['mean_db']:.2f} dB (inf read as 99), worst {out['keys_vs_single']['worst_db']:.2f} "
+          f"dB, floor {cs.MESH_PSNR_FLOOR} ({cs.CARD})", flush=True)
+    if not out["keys_vs_single"]["worst_db"] >= cs.MESH_PSNR_FLOOR:
+        cs.fail(f"clip (d): a key at {out['keys_vs_single']['worst_db']:.2f} dB against one card's, "
+                f"floor {cs.MESH_PSNR_FLOOR}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--out", default=None, help=f"default {OUT}, with --clip {CLIP_OUT}")
     ap.add_argument("--cpu", action="store_true", help="rehearse every phase on the CPU over gloo")
     ap.add_argument("--tiny", action="store_true", help="tiny models at 64 px (the CPU rehearsal)")
+    ap.add_argument("--clip", action="store_true", help="only the whole config_music clip under torchrun")
+    ap.add_argument("--work", default=CLIP_WORK, help="--clip's working directory (emptied first)")
     args = ap.parse_args(argv)
+    args.out = args.out or (CLIP_OUT if args.clip else OUT)
     if not args.cpu:
         need_cards(torch.cuda.device_count() if torch.cuda.is_available() else 0)
     t_start = time.perf_counter()
@@ -286,12 +491,12 @@ def main(argv=None) -> int:
                 "phases": {}, "failed": []}
     from fresco_torch.parallel.dryrun import dryrun_multichip
 
-    phases = [
+    phases = [("clip", lambda: phase_clip(dev, args.tiny, args.work))] if args.clip else [
         ("probe", lambda: phase_probe(dev)),
         ("kernels_off_current", lambda: phase_kernels(args.seed, dev, args.tiny)),
-        ("worlds", lambda: cs.phase_mesh(args.seed, dev, shapes=WORLDS, dryrun=False, **mesh_kw)),
+        ("worlds", lambda: cs.phase_mesh(args.seed, dev, shapes=WORLDS, dryrun=False, waves=False, **mesh_kw)),
         ("full_steps", lambda: cs.phase_mesh(args.seed, dev, shapes=(FULL_SHAPE,), dryrun=False, steps=FULL_STEPS,
-                                             probe=False, **mesh_kw)),
+                                             probe=False, waves=False, **mesh_kw)),
         ("waves", lambda: phase_waves(args.seed, dev, wave_kw)),
         ("dryrun", lambda: dryrun_multichip(CARDS, device=dev.type)),
     ]

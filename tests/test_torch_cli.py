@@ -47,6 +47,7 @@ def test_cli_always_fuses_with_poisson(tmp_path, monkeypatch):
         def __init__(self, config, tiny=False, device=None):
             self.device = "cpu"
             self.phases = runner.PhaseTimes()
+            self.batch_seconds = []
 
         def translate_keyframe_files(self, reuse=False):
             return [0, 4]

@@ -108,15 +108,17 @@ def test_reuse_path_builds_report_without_running(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,want", [
-    (["--device", "cpu"], dict(keyframes_only=False, reuse_synthesis=False, sync_phases=False, device="cpu",
-                               random_aux_weights=False)),
+    (["--device", "cpu"], dict(tiny=False, keyframes_only=False, reuse_synthesis=False, sync_phases=False,
+                               device="cpu", random_aux_weights=False)),
     (["--keyframes-only", "--reuse", "--sync-phases", "--random-aux-weights", "--device", "cpu",
       "--save-path", "elsewhere/"],
-     dict(keyframes_only=True, reuse_synthesis=True, sync_phases=True, device="cpu", random_aux_weights=True)),
+     dict(tiny=False, keyframes_only=True, reuse_synthesis=True, sync_phases=True, device="cpu",
+          random_aux_weights=True)),
 ])
 def test_run_e2e_forces_propagation(argv, want, monkeypatch):
     """run_e2e, the counterpart of scripts/run_e2e.py, hands run_config the
-    config from its file with propagation forced on, and its flags."""
+    config from its file with propagation forced on, its flags and a dict
+    for the readings."""
     import fresco_torch.cli as cli
     from fresco_torch.core.config import load_config
     from fresco_torch.scripts import run_e2e
@@ -126,6 +128,7 @@ def test_run_e2e_forces_propagation(argv, want, monkeypatch):
     path = os.path.join(REPO, "config", "config_music.yaml")
     assert run_e2e.main([path] + argv) == {"translated": {}}
     (cfg, kw), = calls
+    assert isinstance(kw.pop("readings"), dict)  # the dict run_e2e writes with --readings
     base = load_config(path)
     assert cfg == base.replace(run_ebsynth=True, save_path="elsewhere/" if len(argv) > 2 else base.save_path)
     assert kw == want
@@ -161,6 +164,7 @@ def test_run_config_random_aux_weights(tmp_path, monkeypatch):
         def __init__(self, config, bundle=None, tiny=False, device=None):
             seen["pipeline"] = (bundle, tiny, device)
             self.phases = runner.PhaseTimes()
+            self.batch_seconds = []
 
         def translate_keyframe_files(self, reuse=False):
             return [0]

@@ -117,6 +117,7 @@ def test_run_config_writes_blend_mp4_at_the_input_fps(tmp_path, monkeypatch):
         def __init__(self, config, tiny=False, device=None):
             self.device = "cpu"
             self.phases = runner.PhaseTimes()
+            self.batch_seconds = []
 
         def translate_keyframe_files(self, reuse=False):
             return [0, 4]
