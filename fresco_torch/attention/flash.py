@@ -38,6 +38,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 from fresco_torch import kernels
 
@@ -64,31 +65,42 @@ def naive_attention(q, k, v, key_mask=None, *, scale=None):
 
 def flash_attention(q, k, v, key_mask=None, *, scale=None):
     """Masked attention.  q [B,H,Sq,D], k/v [B,H,Sk,D], key_mask [B,Sk]
-    bool (True = attend) or None -> [B,H,Sq,D]."""
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if not scale > 0:
-        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
-    if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
-        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    if key_mask is not None and (key_mask.shape != (b, sk) or key_mask.dtype != torch.bool):
-        raise ValueError(f"flash_attention: key_mask must be bool [{b}, {sk}]")
-    if q.device.type == "cpu":
-        return naive_attention(q, k, v, key_mask, scale=scale)
-    kernels.launch_card("flash_attention", q=q, k=k, v=v, key_mask=key_mask)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} needs a unit-stride head dim, 16-byte "
-                             f"aligned rows and strides that are multiples of 8 (got {t.stride()})")
-    if d % 8 or d > 512:
-        raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 and <= 512")
-    if key_mask is not None and key_mask.stride(-1) != 1:
-        raise ValueError("flash_attention: key_mask needs a unit-stride key axis")
-    return _run(q, k, v, key_mask, float(scale))
+    bool (True = attend) or None -> [B,H,Sq,D].
+
+    A call is the profiler range ``fresco::attention`` and, once its shapes
+    pass the checks, counts once in ``kernels.work_counts()["attention"]``
+    by (B, H, Sq, Sk, D), Sk the keys given, masked or not.  Every UNet,
+    ControlNet and VAE self-attention and the cross-frame and
+    spatial-guided attentions come here; the 77-key text cross-attention
+    (``models/unet.py`` ``CrossAttention.attend``) and the trajectory
+    attention (``fresco_attention.trajectory_frames``) are plain tensor
+    math, in neither the range nor the count."""
+    with record_function("fresco::attention"):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        if scale is None:
+            scale = 1.0 / math.sqrt(d)
+        if not scale > 0:
+            raise ValueError(f"flash_attention: scale must be positive, got {scale}")
+        if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
+            raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+        if key_mask is not None and (key_mask.shape != (b, sk) or key_mask.dtype != torch.bool):
+            raise ValueError(f"flash_attention: key_mask must be bool [{b}, {sk}]")
+        kernels.count_work("attention", (b, h, sq, sk, d))
+        if q.device.type == "cpu":
+            return naive_attention(q, k, v, key_mask, scale=scale)
+        kernels.launch_card("flash_attention", q=q, k=k, v=v, key_mask=key_mask)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.dtype != torch.bfloat16:
+                raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
+            if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} needs a unit-stride head dim, 16-byte "
+                                 f"aligned rows and strides that are multiples of 8 (got {t.stride()})")
+        if d % 8 or d > 512:
+            raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 and <= 512")
+        if key_mask is not None and key_mask.stride(-1) != 1:
+            raise ValueError("flash_attention: key_mask needs a unit-stride key axis")
+        return _run(q, k, v, key_mask, float(scale))
 
 
 def _run(q, k, v, key_mask, scale: float):

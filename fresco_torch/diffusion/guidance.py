@@ -34,7 +34,9 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
+from fresco_torch import kernels
 from fresco_torch.core import comm
 from fresco_torch.ops import gram_kernel
 from fresco_torch.ops.adain import adain
@@ -193,23 +195,27 @@ def _gram_l1_grad(v_hat, correlation, gram_dtype, chunk_rows: int, is_dense: boo
 
     Dense C goes through the sign-gram wrapper (the CUDA kernels on the
     card, the chunked plain version on the CPU); factored C [B,hw,C] is
-    rebuilt one row chunk at a time."""
+    rebuilt one row chunk at a time.  Either path is the profiler range
+    ``fresco::gram`` and counts once in ``kernels.work_counts()["gram"]``
+    by v̂'s (B, hw, c)."""
     b, hw, c = v_hat.shape
-    n = (n_batch or b) * hw * hw
-    vg = v_hat.to(gram_dtype)
-    if is_dense:
-        sv = gram_kernel.sign_gram_apply(vg.contiguous(), correlation.to(gram_dtype).contiguous())
-        return 2.0 * sv / n
-    work = torch.promote_types(gram_dtype, torch.float32)
-    vf = vg.to(work)
-    vr = correlation.to(gram_dtype).to(work)
-    grad = torch.empty((b, hw, c), dtype=work, device=v_hat.device)
-    for row0 in range(0, hw, chunk_rows):
-        rows = slice(row0, row0 + chunk_rows)
-        g = torch.matmul(vf[:, rows], vf.transpose(1, 2))
-        s = torch.sign(g - torch.matmul(vr[:, rows], vr.transpose(1, 2)))
-        grad[:, rows] = 2.0 * torch.matmul(s, vf)
-    return grad / n
+    kernels.count_work("gram", (b, hw, c))
+    with record_function("fresco::gram"):
+        n = (n_batch or b) * hw * hw
+        vg = v_hat.to(gram_dtype)
+        if is_dense:
+            sv = gram_kernel.sign_gram_apply(vg.contiguous(), correlation.to(gram_dtype).contiguous())
+            return 2.0 * sv / n
+        work = torch.promote_types(gram_dtype, torch.float32)
+        vf = vg.to(work)
+        vr = correlation.to(gram_dtype).to(work)
+        grad = torch.empty((b, hw, c), dtype=work, device=v_hat.device)
+        for row0 in range(0, hw, chunk_rows):
+            rows = slice(row0, row0 + chunk_rows)
+            g = torch.matmul(vf[:, rows], vf.transpose(1, 2))
+            s = torch.sign(g - torch.matmul(vr[:, rows], vr.transpose(1, 2)))
+            grad[:, rows] = 2.0 * torch.matmul(s, vf)
+        return grad / n
 
 
 def optimize_feature(sample, fwd_flow, bwd_flow, fwd_occ, bwd_occ, correlation,
@@ -257,8 +263,10 @@ def optimize_feature(sample, fwd_flow, bwd_flow, fwd_occ, bwd_occ, correlation,
             itemsize = torch.empty((), dtype=gram_dtype).element_size()
             # the whole batch's size decides, so that every mesh takes the same path
             if b_c * d * hw_c * hw_c * itemsize / 2**20 <= cfg.dense_corr_max_mb:
-                vr = correlation.to(gram_dtype)
-                correlation = torch.matmul(vr, vr.transpose(1, 2))
+                # the reference gram, built once a call: the gram's range times it too
+                with record_function("fresco::gram"):
+                    vr = correlation.to(gram_dtype)
+                    correlation = torch.matmul(vr, vr.transpose(1, 2))
                 corr_is_dense = True
 
     x0 = sample.to(work_dtype)

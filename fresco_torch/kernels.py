@@ -223,9 +223,34 @@ def launches_by_card() -> dict[str, dict[int, int]]:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0, its counts by card too."""
+    """Set every kernel's launch count to 0, its counts by card too, and
+    clear the work counts (``work_counts``)."""
     ws = wrappers()
     with _count_lock:
         for w in ws.values():
             w.launches = 0
             w.launches_by_card.clear()
+        for counts in _work.values():
+            counts.clear()
+
+
+# calls of the layers whose work a roofline reads, by shape, counted where
+# the work is decided whatever implements it: "gram" by (B, hw, c) of
+# ``guidance._gram_l1_grad``, "attention" by (B, H, Sq, Sk, D) of
+# ``flash.flash_attention``
+_work: dict[str, dict[tuple, int]] = {"gram": {}, "attention": {}}
+
+
+def count_work(layer: str, shape: tuple) -> None:
+    """Add one call of ``layer`` ("gram" or "attention") at ``shape``, under
+    the launch counters' lock; no device work, no read of a tensor."""
+    with _count_lock:
+        counts = _work[layer]
+        counts[shape] = counts.get(shape, 0) + 1
+
+
+def work_counts() -> dict[str, dict[tuple, int]]:
+    """{"gram": {(B, hw, c): calls}, "attention": {(B, H, Sq, Sk, D): calls}}
+    since the last ``reset_launches``."""
+    with _count_lock:
+        return {layer: dict(counts) for layer, counts in _work.items()}

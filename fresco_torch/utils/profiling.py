@@ -4,7 +4,9 @@
 keyframe runner's prep thread times batch k+1's phases while the main
 thread times batch k's denoise loop.  ``phase_timer`` times a block and,
 when asked, synchronizes the CUDA device at its end, so the phase holds
-the device work it queued rather than only its launch time.
+the device work it queued rather than only its launch time, and opens the
+profiler range ``fresco::<phase>`` around the block, so that each phase
+shows in a device trace on the profiler's clock.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import time
 from collections import defaultdict
 
 import torch
+from torch.profiler import record_function
 
 
 class PhaseTimes:
@@ -38,12 +41,14 @@ class PhaseTimes:
 
 @contextlib.contextmanager
 def phase_timer(phases: PhaseTimes, name: str, device: torch.device | None = None):
-    """Time a block into ``phases[name]``; with a CUDA ``device``, wait for
-    the device's queued work before reading the clock."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
-        phases.add(name, time.perf_counter() - t0)
+    """Time a block into ``phases[name]`` inside the profiler range
+    ``fresco::<name>``; with a CUDA ``device``, wait for the device's queued
+    work before reading the clock.  Phases nest as their blocks do."""
+    with record_function(f"fresco::{name}"):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if device is not None and device.type == "cuda":
+                torch.cuda.synchronize(device)
+            phases.add(name, time.perf_counter() - t0)
