@@ -27,7 +27,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                decoder-stage shapes and hw = 1280 in bf16 (the main path's
                gram dtype), and at two of them in float32; the sign kernel,
                the apply and the pair timed, beside the two cuBLAS
-               products alone;
+               products alone; then the fused factored kernel (C = r·rᵀ
+               left factored) at music's finest-stage shapes, [16, 5120,
+               640] and [10, 5120, 640]: bit-equal to the plain chunked
+               products on values where every float32 sum is exact, near
+               them on unit rows, timed beside them and its bound, and its
+               launches in one optimize_feature at [16, 64, 80, 640];
   4. small   : a small-width 64 px batch (FRESCO attention on, feature
                optimization off) on the card (kernels, bf16) and on the CPU
                (plain versions, float32) with the same weights and noise,
@@ -519,6 +524,61 @@ def phase_gram(gen, dev):
         max_err = max(max_err, err)
         del v, vf, vr, corr, out, ref, s_raw, s_kernel, s_lib, ref_ks
     return rows, max_err
+
+
+def phase_factored_gram(gen, dev):
+    """The fused factored kernel (reference gram C = r·rᵀ left factored) at
+    music's finest-stage shapes: on values k/16, where every sum is exact
+    in float32, bit-equal to the plain chunked products; on unit rows (v̂ a
+    perturbation of r) within GRAM_REL_FRO of them (near-tie flips).  Times
+    the kernel, the plain version (the path it replaced) and the bound
+    (6·B·hw²·c at the bf16 tensor peak).  Then one ``optimize_feature`` at
+    music's finest stage ([16, 64, 80, 640], C factored since its dense
+    gram is 800 MiB): its launches, one an iteration.  Returns (rows by
+    (B, hw, c), largest |d| on unit rows, the launches of that call)."""
+    from fresco_torch.diffusion.guidance import GuidanceConfig, optimize_feature
+    from fresco_torch.ops import gram_kernel as gk
+
+    rows, max_err = {}, 0.0
+    for b, hw, c in ((16, 5120, 640), (10, 5120, 640)):
+        grid = lambda: (torch.randn(b, hw, c, generator=gen, device=dev) * 4).round().clamp(-16, 16) / 16  # noqa: E731
+        vq, rq = grid().to(torch.bfloat16), grid().to(torch.bfloat16)
+        exact = torch.equal(gk.factored_sign_gram_apply(vq, rq), gk.factored_sign_gram_plain(vq, rq))
+        del vq, rq
+        r = torch.nn.functional.normalize(torch.randn(b, hw, c, generator=gen, device=dev), dim=-1)
+        v = torch.nn.functional.normalize(r + 0.3 * torch.randn(b, hw, c, generator=gen, device=dev), dim=-1)
+        v, r = v.to(torch.bfloat16).contiguous(), r.to(torch.bfloat16).contiguous()
+        out = gk.factored_sign_gram_apply(v, r)
+        ref = gk.factored_sign_gram_plain(v, r)
+        torch.cuda.synchronize()
+        rel = ((out - ref).norm() / ref.norm()).item()
+        err = (out - ref).abs().max().item()
+        ms = timed(lambda: gk.factored_sign_gram_apply(v, r))
+        plain_ms = cuda_ms(lambda: gk.factored_sign_gram_plain(v, r), iters=3)
+        # v and r read, the f32 output written; G, C and S·v, 2·B·hw²·c each
+        bnd = bound(2 * v.numel() * 2 + out.numel() * 4, 6 * b * hw * hw * c, BF16_TENSOR_FLOPS)
+        print(f"factored gram bf16 B={b} hw={hw} c={c}: grid values bit-equal to plain {exact}; unit rows rel fro "
+              f"{rel:.3e} (tol {GRAM_REL_FRO}), max|d|={err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]}), library none")
+        if not (exact and rel <= GRAM_REL_FRO):
+            fail(f"factored gram B={b} hw={hw} c={c}: grid exact {exact}, rel {rel}")
+        rows[(b, hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        max_err = max(max_err, err)
+        del v, r, out, ref
+    cfg = GuidanceConfig()
+    sample = torch.randn(16, 64, 80, 640, generator=gen, device=dev)
+    corr = torch.nn.functional.normalize(torch.randn(16, 64 * 80, 640, generator=gen, device=dev), dim=-1)
+    before = gk.factored_sign_gram_apply.launches
+    t0 = time.perf_counter()
+    opt = optimize_feature(sample, None, None, None, None, corr, cfg, corr_is_dense=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = gk.factored_sign_gram_apply.launches - before
+    print(f"factored gram: optimize_feature at [16, 64, 80, 640] (C factored, {cfg.iters} iterations) "
+          f"{wall:.3f} s, {n} launches, output finite {bool(torch.isfinite(opt).all())}")
+    if n != cfg.iters or not bool(torch.isfinite(opt).all()):
+        fail(f"factored gram: {n} launches in optimize_feature, expected {cfg.iters}")
+    return rows, max_err, n
 
 
 def make_inputs(seed: int, n: int, res):
@@ -3149,6 +3209,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     flash_rows, flash_err = phase_flash(gen, dev)
     gram_rows, gram_err = phase_gram(gen, dev)
+    fg_rows, fg_err, fg_launches = phase_factored_gram(gen, dev)
     phase_small(args.seed, dev)
     launches = phase_slice(args.seed, dev, gram_rows)
     gather_rows_ = phase_gather(gen, dev)
@@ -3169,6 +3230,7 @@ def main() -> None:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": err, **r}
 
+    launches["sign_gram_factored"] = fg_launches
     table = {"kernels": [
         row("flash_attn_fwd", "fresco_torch/csrc/flash_attn.cu", "fresco_tpu/attention/flash.py:31", flash_err,
             flash_rows["self d=40"]),
@@ -3180,6 +3242,9 @@ def main() -> None:
             pe_rows["seeded 15 cand"]),
         row("bmm", "fresco_torch/csrc/bmm.cu", "scripts/bench_gemm.py:60", gemm_err,
             gemm_rows["flat fij,fjd [8,4096,4096]x[8,4096,1280]"]),
+        row("sign_gram_factored", "fresco_torch/csrc/factored_gram.cu",
+            "none (XLA's chunked einsums, fresco_tpu/diffusion/guidance.py:394-413)", fg_err,
+            fg_rows[(16, 5120, 640)]),
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -194,8 +194,11 @@ def _gram_l1_grad(v_hat, correlation, gram_dtype, chunk_rows: int, is_dense: boo
     N = n_batch·hw² (``n_batch``: the whole batch's, default v̂'s own).
 
     Dense C goes through the sign-gram wrapper (the CUDA kernels on the
-    card, the chunked plain version on the CPU); factored C [B,hw,C] is
-    rebuilt one row chunk at a time.  Either path is the profiler range
+    card, the chunked plain version on the CPU).  Factored C = r·rᵀ, r
+    [B,hw,C]: in bf16 through the factored wrapper (one fused kernel on the
+    card, the chunked plain version on the CPU); in float32 and float64
+    through the chunked products, one row chunk at a time, since bf16
+    tensor-core inputs would round v̂.  Either path is the profiler range
     ``fresco::gram`` and counts once in ``kernels.work_counts()["gram"]``
     by v̂'s (B, hw, c)."""
     b, hw, c = v_hat.shape
@@ -206,16 +209,12 @@ def _gram_l1_grad(v_hat, correlation, gram_dtype, chunk_rows: int, is_dense: boo
         if is_dense:
             sv = gram_kernel.sign_gram_apply(vg.contiguous(), correlation.to(gram_dtype).contiguous())
             return 2.0 * sv / n
-        work = torch.promote_types(gram_dtype, torch.float32)
-        vf = vg.to(work)
-        vr = correlation.to(gram_dtype).to(work)
-        grad = torch.empty((b, hw, c), dtype=work, device=v_hat.device)
-        for row0 in range(0, hw, chunk_rows):
-            rows = slice(row0, row0 + chunk_rows)
-            g = torch.matmul(vf[:, rows], vf.transpose(1, 2))
-            s = torch.sign(g - torch.matmul(vr[:, rows], vr.transpose(1, 2)))
-            grad[:, rows] = 2.0 * torch.matmul(s, vf)
-        return grad / n
+        r = correlation.to(gram_dtype)
+        if gram_dtype == torch.bfloat16:
+            sv = gram_kernel.factored_sign_gram_apply(vg.contiguous(), r.contiguous())
+        else:
+            sv = gram_kernel.factored_sign_gram_plain(vg, r, chunk_rows)
+        return 2.0 * sv / n
 
 
 def optimize_feature(sample, fwd_flow, bwd_flow, fwd_occ, bwd_occ, correlation,

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "fresco_patch_eval": [_P] * 11 + [_I] * 7 + [_P, _I, _I, _P],
     # a, x, out, B, M, N, K, a_period, stream
     "fresco_bmm": [_P] * 3 + [_I] * 5 + [_P],
+    # v, r, out, B, hw, ch, stream
+    "fresco_factored_sign_gram": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 
@@ -199,17 +201,19 @@ def count_launch(wrapper, shape=None, card: torch.device | None = None) -> None:
 
 
 def wrappers() -> dict:
-    """The wrappers of the five hand-written kernels by name, each with its
+    """The wrappers of the six hand-written kernels by name, each with its
     ``launches`` count; ``bmm`` is launched on the main path as the
-    sign-gram pair's apply."""
+    sign-gram pair's apply, ``sign_gram_factored`` where the reference gram
+    stays factored."""
     from fresco_torch.attention.flash import flash_attention
     from fresco_torch.ops.gemm import bmm
-    from fresco_torch.ops.gram_kernel import sign_gram_apply
+    from fresco_torch.ops.gram_kernel import factored_sign_gram_apply, sign_gram_apply
     from fresco_torch.propagate.gather import gather_rows
     from fresco_torch.propagate.patch_eval import patch_eval
 
     return {"flash_attn_fwd": flash_attention, "sign_gram": sign_gram_apply, "bmm": bmm,
-            "row_gather": gather_rows, "patch_eval": patch_eval}
+            "row_gather": gather_rows, "patch_eval": patch_eval,
+            "sign_gram_factored": factored_sign_gram_apply}
 
 
 def launches() -> dict[str, int]:

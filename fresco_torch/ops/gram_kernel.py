@@ -21,6 +21,15 @@ of ``fresco_tpu/diffusion/guidance.py:394-412``.
 
 ``sign_gram_apply.launches`` counts the calls that launched the sign
 kernel, and ``sign_gram_apply.launches_by_shape`` the same by (hw, c).
+
+Where the reference gram stays factored, C = r·rᵀ for r [B, hw, c] (the
+caller's ``dense_corr_max_mb`` keeps it out of memory), the same gradient
+is sign(v·vᵀ − r·rᵀ)·v.  ``factored_sign_gram_apply`` runs it in bf16 as
+one kernel (``fresco_torch/csrc/factored_gram.cu``: D, its sign and the
+apply per tile on chip, no [B, hw, hw] tensor); ``factored_sign_gram_plain``
+is the chunked form, three products a row chunk, in any dtype.
+``factored_sign_gram_apply.launches`` (by (hw, c), by card) counts its
+launches.
 """
 from __future__ import annotations
 
@@ -108,3 +117,49 @@ def apply_sign(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 sign_gram_apply.launches = 0
 sign_gram_apply.launches_by_shape = {}
 sign_gram_apply.launches_by_card = {}
+
+
+def factored_sign_gram_plain(v: torch.Tensor, r: torch.Tensor, chunk_rows: int = 1024) -> torch.Tensor:
+    """sign(v·vᵀ − r·rᵀ)·v in row chunks of ``chunk_rows``; any dtype, any
+    hw.  The three products run in f32 on the given values (exact for bf16
+    inputs), in f64 for f64 inputs (the float64 mode); f32 (f64) [B, hw, c],
+    unscaled."""
+    b, hw, c = v.shape
+    work = torch.promote_types(v.dtype, torch.float32)
+    vf = v.to(work)
+    vr = r.to(work)
+    out = torch.empty((b, hw, c), dtype=work, device=v.device)
+    for row0 in range(0, hw, chunk_rows):
+        rows = slice(row0, row0 + chunk_rows)
+        g = torch.matmul(vf[:, rows], vf.transpose(1, 2))
+        s = torch.sign(g - torch.matmul(vr[:, rows], vr.transpose(1, 2)))
+        out[:, rows] = torch.matmul(s, vf)
+    return out
+
+
+def factored_sign_gram_apply(v: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """sign(v·vᵀ − r·rᵀ)·v, f32 [B, hw, c], unscaled, for v and r [B, hw, c]
+    bf16, contiguous, 16-byte aligned, c a multiple of 8; raises otherwise,
+    on any device.  On a card one launch of the fused kernel (counted); on
+    the CPU ``factored_sign_gram_plain``."""
+    if v.dim() != 3 or r.shape != v.shape:
+        raise ValueError(f"factored_sign_gram_apply: v {tuple(v.shape)} and r {tuple(r.shape)} must be one [B, hw, c]")
+    if v.dtype != torch.bfloat16 or r.dtype != torch.bfloat16:
+        raise TypeError(f"factored_sign_gram_apply: takes bfloat16, got v {v.dtype}, r {r.dtype}")
+    b, hw, c = v.shape
+    if not (v.is_contiguous() and r.is_contiguous()):
+        raise ValueError("factored_sign_gram_apply: v and r must be contiguous")
+    if c % 8 or v.data_ptr() % 16 or r.data_ptr() % 16:
+        raise ValueError(f"factored_sign_gram_apply: channels {c} must be a multiple of 8 and v, r 16-byte aligned")
+    if v.device.type == "cpu" and r.device.type == "cpu":
+        return factored_sign_gram_plain(v, r)
+    card = kernels.launch_card("sign_gram_factored", v=v, r=r)
+    out = torch.empty((b, hw, c), dtype=torch.float32, device=v.device)
+    kernels.call(factored_sign_gram_apply, "factored_sign_gram", card, v.data_ptr(), r.data_ptr(), out.data_ptr(),
+                 b, hw, c, shape=(hw, c))
+    return out
+
+
+factored_sign_gram_apply.launches = 0
+factored_sign_gram_apply.launches_by_shape = {}
+factored_sign_gram_apply.launches_by_card = {}

@@ -1,5 +1,5 @@
-"""The row-gather, batched-GEMM, sign-gram and patch-evaluation kernels'
-report on the GPU:
+"""The row-gather, batched-GEMM, sign-gram, patch-evaluation and factored
+sign-gram kernels' report on the GPU:
 what the compiler says of each kernel instantiation (registers, spills,
 shared memory), which global loads and stores and which tensor-core
 instructions their SASS holds, and variants of each timed in turns on the
@@ -191,6 +191,17 @@ PATCH_EVAL_VARIANTS = {
     TIMING_ONLY + "no source unpack": [(_PE_MATH, _PE_MATH.replace("bf_lo(u)", "__uint_as_float(u)")
                                        .replace("bf_hi(u)", "__uint_as_float(u)"))],
     TIMING_ONLY + "no butterfly": [(_PE_BUTTERFLY, "")],
+}
+
+# factored_gram: the ring's depth, and each of the two streams it overlaps alone
+_FG_RING = "constexpr int STAGES = 4, AHEAD = STAGES - 1;"
+_FG_IN = "    const bool in = row < n_rows && gk < ch;"
+FACTORED_VARIANTS = {
+    "3 stages": [(_FG_RING, "constexpr int STAGES = 3, AHEAD = STAGES - 1;")],
+    TIMING_ONLY + "no loads (slots zero-filled)": [(_FG_IN, "    const bool in = false;")],
+    TIMING_ONLY + "no wgmma": [("        wgmma_n64<1, 0>(acc, ", "        if (false) wgmma_n64<1, 0>(acc, "),
+                               ("        wgmma_n64<-1, 0>(acc, ", "        if (false) wgmma_n64<-1, 0>(acc, "),
+                               ("        wgmma_n64<1, 1>(out[a], ", "        if (false) wgmma_n64<1, 1>(out[a], ")],
 }
 
 
@@ -440,6 +451,41 @@ def sign_variants(libs: dict, dev, parents: dict) -> None:
         del vr, v, corr, d, fns, outs, pairs
 
 
+def factored_variants(libs: dict, dev, parents: dict) -> None:
+    """The fused factored kernel's variants in turns at music's shapes
+    (v̂ [16, 5120, 640] and [10, 5120, 640]) and at c = 1280, on unit rows
+    (v̂ a perturbation of r): each variant that leaves the arithmetic as it
+    is must give the base build's bits; beside them the plain chunked
+    products (the path the kernel replaced) and the bound (6·B·hw²·c at
+    the bf16 tensor peak)."""
+    from fresco_torch.ops import gram_kernel as gk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b, hw, c in ((16, 5120, 640), (10, 5120, 640), (2, 1000, 1280)):
+        r = torch.nn.functional.normalize(torch.randn(b, hw, c, generator=gen, device=dev), dim=-1)
+        v = torch.nn.functional.normalize(r + 0.3 * torch.randn(b, hw, c, generator=gen, device=dev), dim=-1)
+        v, r = v.to(torch.bfloat16).contiguous(), r.to(torch.bfloat16).contiguous()
+        fns, outs = {}, {}
+        for tag, fn in libs.items():
+            out = torch.empty(b, hw, c, dtype=torch.float32, device=dev)
+
+            def call(fn=fn, out=out):
+                kernels.check(fn(v.data_ptr(), r.data_ptr(), out.data_ptr(), b, hw, c, stream), "factored")
+
+            call()
+            torch.cuda.synchronize()
+            if tag != "this tree" and not tag.startswith(TIMING_ONLY) and not torch.equal(out, outs["this tree"]):
+                cs.fail(f"factored variant {tag} at [{b}, {hw}, {c}]: other bits than the base build")
+            fns[tag], outs[tag] = call, out
+        fns["plain (chunked float32 products)"] = lambda: gk.factored_sign_gram_plain(v, r)
+        bnd = cs.bound(2 * v.numel() * 2 + b * hw * c * 4, 6 * b * hw * hw * c, cs.BF16_TENSOR_FLOPS)
+        for tag, ms in timed_turns(fns, 10).items():
+            print(f"factored [{b}, {hw}, {c}] {tag:40s}: " + " / ".join(f"{m_:.4f}" for m_ in ms)
+                  + f" ms (bound {bnd[0]:.3f} ms, {bnd[1]})")
+        del v, r, fns, outs
+
+
 PATCH_EVAL_SHAPES = ((512, 640, 15), (128, 160, 15), (16, 20, 20), (512, 640, 1))  # where every variant runs
 
 
@@ -492,7 +538,7 @@ def main() -> None:
     ap.add_argument("--no-variants", action="store_true")
     ap.add_argument("--select", default="", help="only the variants whose name holds this string")
     ap.add_argument("--kernel", action="append", default=[],
-                    choices=["row_gather", "bmm", "sign_gram", "patch_eval"],
+                    choices=["row_gather", "bmm", "sign_gram", "patch_eval", "factored_gram"],
                     help="report only this kernel (may be repeated; default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -506,7 +552,9 @@ def main() -> None:
                                            ("bmm", BMM_VARIANTS, "fresco_bmm", bmm_variants),
                                            ("sign_gram", SIGN_VARIANTS, "fresco_sign_gram_sign", sign_variants),
                                            ("patch_eval", PATCH_EVAL_VARIANTS, "fresco_patch_eval",
-                                            patch_eval_variants)):
+                                            patch_eval_variants),
+                                           ("factored_gram", FACTORED_VARIANTS, "fresco_factored_sign_gram",
+                                            factored_variants)):
             if args.kernel and kern not in args.kernel:
                 continue
             src = os.path.join(kernels.CSRC, f"{kern}.cu")

@@ -25,7 +25,15 @@ Frobenius, at ragged shapes (M, N, K that no tile divides, K and N not
 multiples of 8) and in the guidance layout.  The sparse warp (plain
 tensor code, no kernel of its own): its backward bit-identical across
 two calls, and within 1e-5 relative Frobenius of the dense matrix's
-transpose product.  Checkpoint tensors read on the host move to the card
+transpose product.  Factored sign-gram: on values k/16 (|k| <= 16)
+every sum either side forms is exact in float32, so the kernel equals the
+float64 sign(v·vᵀ − r·rᵀ)·v bit for bit, ties (D = 0, sign 0) included;
+on unit rows, as the pipeline's, a sign may differ from the float64 one
+only where |D| is within float32 rounding of 0 (2·K·2⁻²⁴ times the sum of
+|products|, K = 2c: the bound of a float32 sum of K terms, doubled for
+the tensor cores' accumulation), so the output lies within those entries'
+|v| rows plus the float32 bound of the apply's sums of the float64 S·v,
+and so does the plain version.  Checkpoint tensors read on the host move to the card
 unchanged.  With two cards, each kernel also runs on cuda:1 inputs while
 cuda:0 is current, under its own test's bounds (F27).
 """
@@ -33,7 +41,8 @@ import pytest
 import torch
 
 from fresco_torch.attention.flash import flash_attention, naive_attention
-from fresco_torch.ops.gram_kernel import sign_gram_apply, sign_gram_plain
+from fresco_torch.ops.gram_kernel import (factored_sign_gram_apply, factored_sign_gram_plain, sign_gram_apply,
+                                          sign_gram_plain)
 
 
 @pytest.fixture
@@ -204,6 +213,99 @@ def test_sign_gram_bf16_pair(cuda_device, b, hw, c, c_offset):
     ref = gk.sign_gram_plain(v, corr)
     assert out.dtype == torch.float32 and out.shape == (b, hw, c)
     assert ((out - ref).norm() / ref.norm()).item() < 1e-5
+
+
+def _factored_exact(v, r, rows=512):
+    """sign(v·vᵀ − r·rᵀ)·v in float64, and D in float64 with the float32
+    rounding bound of each entry (2·K·u·Σ|products|, K = 2c, u = 2⁻²⁴),
+    row chunk by row chunk: (S·v, for each output entry the sum of |v_jk|
+    over the j whose sign lies within the bound)."""
+    vd, rd = v.double(), r.double()
+    va = vd.abs()
+    k_terms = 2 * v.shape[2]
+    sv, tie_rows = torch.empty_like(vd), torch.empty_like(vd)
+    for r0 in range(0, v.shape[1], rows):
+        d = vd[:, r0 : r0 + rows] @ vd.transpose(1, 2) - rd[:, r0 : r0 + rows] @ rd.transpose(1, 2)
+        mag = va[:, r0 : r0 + rows] @ va.transpose(1, 2) + rd[:, r0 : r0 + rows].abs() @ rd.abs().transpose(1, 2)
+        tie = d.abs() <= 2 * k_terms * 2.0**-24 * mag
+        sv[:, r0 : r0 + rows] = torch.sign(d) @ vd
+        tie_rows[:, r0 : r0 + rows] = tie.double() @ va
+    return sv, tie_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c", [
+    (1, 40, 8), (2, 64, 640),                      # under one tile
+    (2, 72, 640), (16, 200, 8), (2, 200, 320),     # ragged hw
+    (1, 1000, 1280), (3, 1000, 640),
+    (2, 264, 1000),                                # two column blocks, the second ragged
+    (16, 5120, 640), (10, 5120, 640),              # the main path's: music's two 16-image batches, the 10-image one
+])
+def test_factored_sign_gram_exact_on_grid(cuda_device, b, hw, c):
+    """Values k/16: every partial sum of D (<= 2c terms of k²/256) and of
+    S·v (<= hw terms of k/16) is exact in float32, so the kernel's output
+    is the float64 S·v bit for bit (exact ties included), as is the plain
+    version's; one launch, counted by shape."""
+    g = torch.Generator(device=cuda_device).manual_seed(hw * 7 + c)
+    grid = lambda: ((torch.randn(b, hw, c, device=cuda_device, generator=g) * 4).round().clamp(-16, 16) / 16)  # noqa: E731
+    v, r = grid().to(torch.bfloat16), grid().to(torch.bfloat16)
+    before, by_shape = factored_sign_gram_apply.launches, factored_sign_gram_apply.launches_by_shape.get((hw, c), 0)
+    out = factored_sign_gram_apply(v, r)
+    torch.cuda.synchronize()
+    assert factored_sign_gram_apply.launches == before + 1
+    assert factored_sign_gram_apply.launches_by_shape[(hw, c)] == by_shape + 1
+    assert out.dtype == torch.float32 and out.shape == (b, hw, c)
+    exact = _factored_exact(v, r)[0].float()
+    assert torch.equal(out, exact), (out - exact).abs().max().item()
+    assert torch.equal(factored_sign_gram_plain(v, r), exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c", [(2, 1000, 640), (1, 1000, 1280), (16, 5120, 640), (10, 5120, 640)])
+def test_factored_sign_gram_matches_plain(cuda_device, b, hw, c):
+    """Unit rows, v̂ a perturbation of r as in the pipeline: kernel and
+    plain version each within the float64 S·v's bound (signs exact off the
+    float32 ties, the apply's sums within hw·u·Σ|v| each way)."""
+    g = torch.Generator(device=cuda_device).manual_seed(c + hw)
+    rf = torch.nn.functional.normalize(torch.randn(b, hw, c, device=cuda_device, generator=g), dim=-1)
+    vf = torch.nn.functional.normalize(rf + 0.3 * torch.randn(b, hw, c, device=cuda_device, generator=g), dim=-1)
+    v, r = vf.to(torch.bfloat16), rf.to(torch.bfloat16)
+    out = factored_sign_gram_apply(v, r)
+    plain = factored_sign_gram_plain(v, r)
+    torch.cuda.synchronize()
+    sv, tie_rows = _factored_exact(v, r)
+    bound = tie_rows + 2 * hw * 2.0**-24 * v.double().abs().sum(dim=1, keepdim=True)
+    for name, x in (("kernel", out), ("plain", plain)):
+        excess = ((x.double() - sv).abs() - bound).max().item()
+        assert excess <= 0, (name, excess)
+    assert ((out - plain).norm() / plain.norm()).item() < 5e-2
+
+
+@pytest.mark.cuda
+def test_factored_gram_routing(cuda_device):
+    """A bf16 ``_gram_l1_grad`` with C factored launches the fused kernel
+    once and neither the sign-gram pair nor bmm; float32 launches none (the
+    chunked products) and gives the plain version's bits."""
+    from fresco_torch import kernels
+    from fresco_torch.diffusion.guidance import _gram_l1_grad
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    r = torch.nn.functional.normalize(torch.randn(2, 300, 64, device=cuda_device, generator=g), dim=-1)
+    v = torch.nn.functional.normalize(r + 0.3 * torch.randn(2, 300, 64, device=cuda_device, generator=g), dim=-1)
+    names = ("sign_gram_factored", "sign_gram", "bmm")
+    before = kernels.launches()
+    grad = _gram_l1_grad(v, r, torch.bfloat16, 300, is_dense=False)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert [after[n] - before[n] for n in names] == [1, 0, 0]
+    sv = factored_sign_gram_apply(v.to(torch.bfloat16), r.to(torch.bfloat16))
+    assert torch.equal(grad, 2.0 * sv / (2 * 300 * 300))
+    before = kernels.launches()
+    grad32 = _gram_l1_grad(v, r, torch.float32, 300, is_dense=False)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert [after[n] - before[n] for n in names] == [0, 0, 0]
+    assert torch.equal(grad32, 2.0 * factored_sign_gram_plain(v, r, 300) / (2 * 300 * 300))
 
 
 @pytest.mark.cuda
@@ -425,6 +527,7 @@ _OFF_CURRENT = {
     "bmm": lambda dev: test_bmm_kernel_matches_plain(dev, (2, 3, 264, 136), 200),
     "row_gather": lambda dev: test_row_gather_kernel_bit_equal(dev, torch.float32, 75, 777, 1),
     "patch_eval": lambda dev: test_patch_eval_kernel_matches_plain(dev, 15, 5, "compact"),
+    "sign_gram_factored": lambda dev: test_factored_sign_gram_exact_on_grid(dev, 2, 264, 1000),
 }
 
 

@@ -6,9 +6,10 @@ float32 grams: tolerance 1e-4 absolute on the AdaIN-renormalized output
 (O(1)).  The loss has sign() and |.| kinks, but at a fixed input both
 packages take the same branch unless a residual lands within float32
 rounding of 0, which these seeded inputs do not.  bfloat16 grams route
-the port's spatial gradient through the sign-gram wrapper (its plain
-version on the CPU) and JAX's through its chunked path; bf16 rounding of
-C flips near-tie signs, so that case is held to 2e-2 relative Frobenius.
+the port's spatial gradient through the sign-gram wrapper, or with the
+reference gram factored through the factored wrapper (their plain
+versions on the CPU), and JAX's through its chunked path; bf16 rounding
+flips near-tie signs, so those cases are held to 2e-2 relative Frobenius.
 """
 import numpy as np
 import pytest
@@ -31,8 +32,9 @@ def _inputs(seed=0, chunk=2, f=3, h=8, w=8, c=16, H=64):
     return sample, flows, occs, ref
 
 
-@pytest.mark.parametrize("gram_dtype,max_mb", [("float32", 600.0), ("bfloat16", 600.0), ("float32", 0.0)],
-                         ids=["f32-dense", "bf16-dense", "f32-factored"])
+@pytest.mark.parametrize("gram_dtype,max_mb", [("float32", 600.0), ("bfloat16", 600.0), ("float32", 0.0),
+                                                ("bfloat16", 0.0)],
+                         ids=["f32-dense", "bf16-dense", "f32-factored", "bf16-factored"])
 def test_optimize_feature(gram_dtype, max_mb):
     """max_mb = 0 keeps the reference gram factored (rebuilt per row chunk)."""
     sample, flows, occs, ref = _inputs()
