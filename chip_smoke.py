@@ -31,19 +31,23 @@ Phases (each prints its own lines; any failure exits non-zero):
                left factored) at music's finest-stage shapes, [16, 5120,
                640] and [10, 5120, 640]: bit-equal to the plain chunked
                products on values where every float32 sum is exact, near
-               them on unit rows, timed beside them and its bound, and its
-               launches in one optimize_feature at [16, 64, 80, 640];
+               them on unit rows, timed beside them and its bound, and one
+               optimize_feature at [16, 64, 80, 640] launching it once an
+               iteration;
   4. small   : a small-width 64 px batch (FRESCO attention on, feature
                optimization off) on the card (kernels, bf16) and on the CPU
                (plain versions, float32) with the same weights and noise,
                compared;
-  5. slice   : one batch of 8 keyframes at 512x512 through
-               FrescoPipeline._translate_batch and decode, at full SD1.5
-               width (UNet, ControlNet, VAE, CLIP-L text) with random
+  5. slice   : one batch of 8 keyframes at config_music's 512x640
+               through FrescoPipeline._translate_batch and decode, at full
+               SD1.5 width (UNet, ControlNet, VAE, CLIP-L text) with random
                weights from a seeded torch.Generator, config_music's
-               settings.  The flash, sign-gram and bmm launch counters
-               must move; the sign-gram launches are printed by shape
-               beside phase 3's time at each;
+               settings.  The flash, sign-gram, bmm and factored-gram
+               launch counters (from 0 at the slice's start) must move:
+               the finest stage's gram (16 images with CFG, hw 5120) stays
+               factored; the sign-gram launches are printed by shape
+               (the dense stages' hw 80, 320, 1280 at c = 1280, which
+               phase 3 does not time);
   6. gather  : the row-gather kernel against index_select, bit for bit:
                a table base 4 but not 16 bytes aligned, k = 1 and one more
                than a warp's rows, widths 1, 3, 27, 75, 76 (float32), 384
@@ -531,11 +535,14 @@ def phase_factored_gram(gen, dev):
     music's finest-stage shapes: on values k/16, where every sum is exact
     in float32, bit-equal to the plain chunked products; on unit rows (v̂ a
     perturbation of r) within GRAM_REL_FRO of them (near-tie flips).  Times
-    the kernel, the plain version (the path it replaced) and the bound
-    (6·B·hw²·c at the bf16 tensor peak).  Then one ``optimize_feature`` at
-    music's finest stage ([16, 64, 80, 640], C factored since its dense
-    gram is 800 MiB): its launches, one an iteration.  Returns (rows by
-    (B, hw, c), largest |d| on unit rows, the launches of that call)."""
+    the kernel, the plain version (the path it replaced) and the bound:
+    4·B·hw²·c at the bf16 tensor peak, the least work (half of the
+    symmetric D = v̂v̂ᵀ − rrᵀ, then S·v̂), as ``gram_roofline`` counts the
+    dense case; the kernel forms D whole, 6·B·hw²·c, which is printed
+    beside it.  Then one ``optimize_feature`` at music's finest stage
+    ([16, 64, 80, 640], C factored since its dense gram is 800 MiB) must
+    launch it once an iteration.  Returns (rows by (B, hw, c), largest |d|
+    on unit rows).  The kernel table's launches come from phase 5."""
     from fresco_torch.diffusion.guidance import GuidanceConfig, optimize_feature
     from fresco_torch.ops import gram_kernel as gk
 
@@ -555,11 +562,14 @@ def phase_factored_gram(gen, dev):
         err = (out - ref).abs().max().item()
         ms = timed(lambda: gk.factored_sign_gram_apply(v, r))
         plain_ms = cuda_ms(lambda: gk.factored_sign_gram_plain(v, r), iters=3)
-        # v and r read, the f32 output written; G, C and S·v, 2·B·hw²·c each
-        bnd = bound(2 * v.numel() * 2 + out.numel() * 4, 6 * b * hw * hw * c, BF16_TENSOR_FLOPS)
+        # v and r read, the f32 output written; half of the symmetric D (B·hw²·c
+        # for each of G and C), then S·v (2·B·hw²·c)
+        bnd = bound(2 * v.numel() * 2 + out.numel() * 4, 4 * b * hw * hw * c, BF16_TENSOR_FLOPS)
+        whole_d_ms = 6 * b * hw * hw * c / BF16_TENSOR_FLOPS * 1e3
         print(f"factored gram bf16 B={b} hw={hw} c={c}: grid values bit-equal to plain {exact}; unit rows rel fro "
               f"{rel:.3e} (tol {GRAM_REL_FRO}), max|d|={err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bnd[0]:.3f} ms ({bnd[1]}), library none")
+              f"bound {bnd[0]:.3f} ms ({bnd[1]}, 4·B·hw²·c; D formed whole, 6·B·hw²·c, {whole_d_ms:.3f} ms), "
+              f"library none")
         if not (exact and rel <= GRAM_REL_FRO):
             fail(f"factored gram B={b} hw={hw} c={c}: grid exact {exact}, rel {rel}")
         rows[(b, hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
@@ -578,7 +588,7 @@ def phase_factored_gram(gen, dev):
           f"{wall:.3f} s, {n} launches, output finite {bool(torch.isfinite(opt).all())}")
     if n != cfg.iters or not bool(torch.isfinite(opt).all()):
         fail(f"factored gram: {n} launches in optimize_feature, expected {cfg.iters}")
-    return rows, max_err, n
+    return rows, max_err
 
 
 def make_inputs(seed: int, n: int, res):
@@ -715,17 +725,16 @@ def sign_gram_by_shape(label: str, gram_rows) -> None:
 
 
 def phase_slice(seed: int, dev, gram_rows=None):
-    from fresco_torch.attention.flash import flash_attention
-    from fresco_torch.ops.gemm import bmm
+    from fresco_torch import kernels
     from fresco_torch.ops.gram_kernel import sign_gram_apply
     from fresco_torch.pipeline.runner import FrescoPipeline, build_models
     from fresco_torch.utils.guards import check_finite
 
-    n, res = 8, 512
+    n, h, w = 8, 512, 640  # config_music's frames
     cfg = music_config()
     t0 = time.perf_counter()
     bundle = build_models(cfg, seed=seed, device=dev)
-    frames, flows, detector = make_inputs(seed, n, res)
+    frames, flows, detector = make_inputs(seed, n, (h, w))
     flows_t = torch.from_numpy(flows).to(dev)
     bundle.flow_fn = lambda a, b: flows_t
     bundle.detector = detector
@@ -738,17 +747,15 @@ def phase_slice(seed: int, dev, gram_rows=None):
     prompts, negs = prompts_for(cfg, n)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    flash_attention.launches = 0
-    sign_gram_apply.launches = 0
+    kernels.reset_launches()
     sign_gram_apply.launches_by_shape.clear()
-    bmm.launches = 0
     t0 = time.perf_counter()
     latents, record = pipe._translate_batch(frames, prompts, negs, None, False)
     images = pipe.decode(latents)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": flash_attention.launches, "sign_gram": sign_gram_apply.launches,
-                "bmm": bmm.launches}
+    launches = {k: v for k, v in kernels.launches().items()
+                if k in ("flash_attn_fwd", "sign_gram", "bmm", "sign_gram_factored")}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
 
     ph = pipe.phases.times
@@ -757,13 +764,13 @@ def phase_slice(seed: int, dev, gram_rows=None):
              ("denoise loop", "denoise_loop"), ("decode", "vae_decode"),
              ("upload", "upload_frames"), ("control detector", "control_detector")]
     print("slice phases (s, synchronized): " + ", ".join(f"{a} {ph.get(b, 0.0):.3f}" for a, b in names))
-    print(f"slice: {n} keyframes {res}x{res}, {cfg.num_inference_steps} steps, wall {wall:.2f} s, "
+    print(f"slice: {n} keyframes {h}x{w}, {cfg.num_inference_steps} steps, wall {wall:.2f} s, "
           f"peak device memory {peak_gb:.2f} GiB, launches {launches}")
     sign_gram_by_shape("slice", gram_rows)
     check_finite("slice_latents", latents)
     print(f"slice: latents finite, shape {tuple(latents.shape)}, |max| {latents.abs().max().item():.3f}; "
           f"record {tuple(record.shape)}; output {images.shape} {images.dtype}")
-    if images.shape != (n, res, res, 3) or images.dtype != np.uint8:
+    if images.shape != (n, h, w, 3) or images.dtype != np.uint8:
         fail(f"slice output {images.shape} {images.dtype}")
     if min(launches.values()) <= 0:
         fail(f"slice did not launch every kernel: {launches}")
@@ -3209,7 +3216,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     flash_rows, flash_err = phase_flash(gen, dev)
     gram_rows, gram_err = phase_gram(gen, dev)
-    fg_rows, fg_err, fg_launches = phase_factored_gram(gen, dev)
+    fg_rows, fg_err = phase_factored_gram(gen, dev)
     phase_small(args.seed, dev)
     launches = phase_slice(args.seed, dev, gram_rows)
     gather_rows_ = phase_gather(gen, dev)
@@ -3230,7 +3237,6 @@ def main() -> None:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": err, **r}
 
-    launches["sign_gram_factored"] = fg_launches
     table = {"kernels": [
         row("flash_attn_fwd", "fresco_torch/csrc/flash_attn.cu", "fresco_tpu/attention/flash.py:31", flash_err,
             flash_rows["self d=40"]),

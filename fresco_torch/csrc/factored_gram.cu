@@ -10,10 +10,13 @@
 // dense reference gram C = r r^T would exceed `dense_corr_max_mb`: at the
 // 512x640 finest decoder stage, v [16, 5120, 640] (C would be 800 MiB).
 //
-// What bounds it on the H100: operations.  6 B hw^2 c FLOPs (v v^T and
-// r r^T, 2 B hw^2 c each, then S v) against 2 x 105 MB of bf16 operands
-// and a 210 MB f32 output: 1.61e12 FLOPs, 1.63 ms at the bf16 tensor peak
-// (989 TFLOP/s) at [16, 5120, 640], 0.13 ms of memory.
+// What bounds it on the H100: operations.  The least work is 4 B hw^2 c
+// FLOPs (half of the symmetric D = v v^T - r r^T, B hw^2 c for each
+// product, then S v, 2 B hw^2 c) against 2 x 105 MB of bf16 operands and
+// a 210 MB f32 output: 1.07e12 FLOPs, 1.09 ms at the bf16 tensor peak
+// (989 TFLOP/s) at [16, 5120, 640], 0.13 ms of memory.  A block here owns
+// rows and forms its D tiles whole, 6 B hw^2 c FLOPs, so the floor this
+// design can reach is 1.63 ms.
 //
 // Why fusing pays here when sign_gram.cu's note says it does not for the
 // dense case: there is no C to read (the dense pair reads C and writes S,

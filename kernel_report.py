@@ -456,8 +456,9 @@ def factored_variants(libs: dict, dev, parents: dict) -> None:
     (v̂ [16, 5120, 640] and [10, 5120, 640]) and at c = 1280, on unit rows
     (v̂ a perturbation of r): each variant that leaves the arithmetic as it
     is must give the base build's bits; beside them the plain chunked
-    products (the path the kernel replaced) and the bound (6·B·hw²·c at
-    the bf16 tensor peak)."""
+    products (the path the kernel replaced) and the bound (4·B·hw²·c at
+    the bf16 tensor peak: half of the symmetric D, then S·v̂; the kernel
+    forms D whole, 6·B·hw²·c)."""
     from fresco_torch.ops import gram_kernel as gk
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -479,7 +480,7 @@ def factored_variants(libs: dict, dev, parents: dict) -> None:
                 cs.fail(f"factored variant {tag} at [{b}, {hw}, {c}]: other bits than the base build")
             fns[tag], outs[tag] = call, out
         fns["plain (chunked float32 products)"] = lambda: gk.factored_sign_gram_plain(v, r)
-        bnd = cs.bound(2 * v.numel() * 2 + b * hw * c * 4, 6 * b * hw * hw * c, cs.BF16_TENSOR_FLOPS)
+        bnd = cs.bound(2 * v.numel() * 2 + b * hw * c * 4, 4 * b * hw * hw * c, cs.BF16_TENSOR_FLOPS)
         for tag, ms in timed_turns(fns, 10).items():
             print(f"factored [{b}, {hw}, {c}] {tag:40s}: " + " / ".join(f"{m_:.4f}" for m_ in ms)
                   + f" ms (bound {bnd[0]:.3f} ms, {bnd[1]})")
